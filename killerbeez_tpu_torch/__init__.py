@@ -1,0 +1,62 @@
+"""killerbeez_tpu_torch — the Killerbeez fuzzer on PyTorch and CUDA.
+
+A port of ``killerbeez_tpu`` (the JAX/Pallas package beside it) to
+PyTorch, with the VM kernels written by hand in CUDA C++ for Hopper
+(``csrc/vm_kernel.cu``).  The module tree mirrors the JAX package so
+each counterpart sits at the same relative path; the JAX package is
+the reference every module here is held to, bit for bit.
+
+Everything runs on the CUDA card unless the caller asks for the CPU
+(``device="cpu"``), where each kernel's plain PyTorch version runs
+instead.  Asking for the card without one is an error, never a silent
+fall back to the CPU.
+
+Package map (this slice: the flagship fuzz loop):
+  utils/            logging, JSON option parsing, state serialization
+  models/           the KBVM bytecode VM (plain torch engine) + targets
+  ops/              PRNG, havoc, coverage triage, the VM kernels
+  csrc/             CUDA C++ sources of the kernels
+  instrumentation/  jit_harness
+  mutators/         havoc
+  drivers/          file
+  fuzzer/           the batched main loop + CLI
+"""
+
+__version__ = "0.1.0"
+
+MAP_SIZE_POW2 = 16
+MAP_SIZE = 1 << MAP_SIZE_POW2  # AFL-compatible edge bitmap size
+
+# the fuzzer CLI's -b/--batch-size default
+DEFAULT_BATCH_SIZE = 1024
+
+# Fuzz verdicts (reference killerbeez-utils global_types.h)
+FUZZ_NONE = 0
+FUZZ_HANG = 1
+FUZZ_CRASH = 2
+FUZZ_RUNNING = 3
+FUZZ_ERROR = 4
+
+FUZZ_RESULT_NAMES = {
+    FUZZ_NONE: "none",
+    FUZZ_HANG: "hang",
+    FUZZ_CRASH: "crash",
+    FUZZ_RUNNING: "running",
+    FUZZ_ERROR: "error",
+}
+
+
+def resolve_device(device="cuda"):
+    """The ``torch.device`` for a constructor's ``device`` argument.
+    Asking for CUDA on a machine without a card raises: the port never
+    carries on on the CPU unless the caller asked for it."""
+    import torch
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            f"device {device!r} requested but no CUDA card is available "
+            "(torch.cuda.is_available() is False); pass device=\"cpu\" "
+            "(CLI: --device cpu) to run the plain PyTorch versions")
+    if dev.type not in ("cuda", "cpu"):
+        raise ValueError(f"unsupported device {device!r}")
+    return dev

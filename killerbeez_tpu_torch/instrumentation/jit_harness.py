@@ -1,0 +1,546 @@
+"""jit_harness — whole-loop-on-device instrumentation over the KBVM.
+
+The port of the JAX package's ``instrumentation/jit_harness.py``: the
+target is a compiled KBVM program, a candidate batch executes on the
+device, and coverage triage (classify -> novelty vs three virgin maps
+-> unique crash/hang via simplified traces) runs on the device too;
+only verdicts and the few interesting lanes cross to the host.
+
+Engines (the reference's xla / pallas / pallas_fused):
+  * ``torch``       the plain PyTorch VM; CPU only
+  * ``cuda``        the CUDA VM kernel; fuses automatically with a
+                    fusable mutator (havoc), like ``pallas``
+  * ``cuda_fused``  havoc and the VM in one CUDA kernel (the flagship
+                    path), with two-phase tail scheduling
+
+Novelty modes:
+  * ``exact``      — lanes judged sequentially (lane i sees the virgin
+                     maps after lanes < i): the single-exec loop's
+                     counts, bit for bit;
+  * ``throughput`` — all lanes vs the incoming maps + in-batch hash
+                     dedup (over-reports within a batch the way the
+                     reference's persistence mode does).
+"""
+
+from __future__ import annotations
+
+import json
+from typing import Any, Dict, Optional, Tuple
+
+import numpy as np
+import torch
+
+from .. import FUZZ_CRASH, FUZZ_HANG, FUZZ_NONE, FUZZ_RUNNING, \
+    resolve_device
+from ..models import targets as targets_mod
+from ..ops import prng
+from ..ops.coverage import (
+    classify_counts, count_non_255_bytes, merge_virgin, simplify_trace,
+)
+from ..ops.static_triage import (
+    _outside_mask, counts_by_slot, make_static_maps, static_triage,
+)
+from ..ops.vm_kernel import (
+    auto_phase1_steps, compact_lanes, fuzz_batch_2phase,
+    havoc_words_for_keys, run_batch as vm_run_batch,
+)
+from ..utils.logging import WARNING_MSG
+from ..utils.serialization import decode_array, encode_array
+from .base import BatchResult, CompactReport, Instrumentation, \
+    pack_verdicts
+from .factory import register_instrumentation
+
+# the sequential exact scan is the parity mode; above this lane count
+# the DEFAULT novelty flips to throughput
+EXACT_BATCH_GATE = 1024
+
+# lanes the in-step compaction can report per batch; batches with
+# more interesting lanes than this fall back to a full-tensor pull
+COMPACT_CAP = 1024
+
+M32 = 0xFFFFFFFF
+
+# bit index of a single-bit byte (AFL classes and simplified traces are
+# 0 or one power of two); 8 for zero
+_BIT_INDEX = np.full(256, 8, dtype=np.int64)
+for _k in range(8):
+    _BIT_INDEX[1 << _k] = _k
+_BIT_INDEX_ON = {}
+
+
+def _seq_novelty(virgin_u, vals, active):
+    """Sequential ``has_new_bits`` over the lanes of ``vals``
+    (uint8[B, U], each cell 0 or a single bit) against ``virgin_u``
+    (uint8[U]): lane i is judged against the map after the ACTIVE
+    lanes before it.  Vectorized: lane i sees bit k of slot s cleared
+    iff an earlier active lane set it, so one first-lane-per-(slot,
+    bit) table replaces the scan.  Returns (rets int64[B], the map
+    after every active lane)."""
+    b, u = vals.shape
+    dev = vals.device
+    lane = torch.arange(b, device=dev)
+    table = _BIT_INDEX_ON.get(dev)
+    if table is None:
+        table = _BIT_INDEX_ON[dev] = torch.as_tensor(_BIT_INDEX, device=dev)
+    bit = table[vals.long()]                                      # [B, U]
+    key = torch.arange(u, device=dev)[None, :] * 9 + bit
+    key = torch.where(active[:, None] & (vals != 0), key, u * 9)
+    first = torch.full((u * 9 + 1,), b, dtype=torch.int64, device=dev)
+    first.scatter_reduce_(0, key.reshape(-1),
+                          lane[:, None].expand(b, u).reshape(-1),
+                          reduce="amin")
+    first = first[:-1].view(u, 9)[:, :8]                          # [U, 8]
+    earlier_any = first.amin(dim=1)[None, :] < lane[:, None]
+    earlier_same = first.gather(1, bit.clamp(max=7).t()).t() \
+        < lane[:, None]
+    v = virgin_u[None, :]
+    new_tuple = ((vals != 0) & (v == 0xFF) & ~earlier_any).any(dim=1)
+    new_count = (((vals & v) != 0) & ~earlier_same).any(dim=1)
+    rets = torch.where(new_tuple, 2, torch.where(new_count, 1, 0))
+    seen = torch.zeros(u, dtype=torch.uint8, device=dev)
+    for k in range(8):
+        seen = seen | ((first[:, k] < b).to(torch.uint8) << k)
+    return rets, virgin_u & ~seen
+
+
+def _triage_exact(vb, vc, vh, cls, simp, statuses, u_slots):
+    """Sequential parity triage (the reference's single-exec loop run
+    B times) over the static universe: ``cls``/``simp`` are the
+    classified and simplified traces at ``u_slots`` (uint8[B, U]).
+    Slots outside the universe hold simplified value 1 for every lane,
+    so they are carried as two flags per map (some byte still 0xFF,
+    some byte with bit 0 set) that the first crash (hang) clears."""
+    b = cls.shape[0]
+    us = u_slots.long()
+    lane = torch.arange(b, device=cls.device)
+    new_paths, vbu = _seq_novelty(vb[us], cls,
+                                  torch.ones(b, dtype=torch.bool,
+                                             device=cls.device))
+    vb2 = vb.clone()
+    vb2[us] = vbu
+
+    def dedup_map(v, active):
+        rets, vu = _seq_novelty(v[us], simp, active)
+        outside = _outside_mask(u_slots, v.shape[0]).bool()
+        any_ff = ((v == 0xFF) & outside).any()
+        any_b0 = (((v & 1) != 0) & outside).any()
+        first = torch.where(active, lane, b).amin()
+        fresh = ~(first < lane)                  # no active lane before
+        out_rets = torch.where(fresh & any_ff, 2,
+                               torch.where(fresh & any_b0, 1, 0))
+        rets = torch.maximum(rets, out_rets)
+        v2 = v.clone()
+        v2[us] = vu
+        v2 = torch.where(active.any(), v2 & ~outside.to(torch.uint8), v2)
+        return active & (rets > 0), v2
+
+    uc, vc2 = dedup_map(vc, statuses == FUZZ_CRASH)
+    uh, vh2 = dedup_map(vh, statuses == FUZZ_HANG)
+    return new_paths.to(torch.int32), uc, uh, vb2, vc2, vh2
+
+
+def _triage_counts(counts, statuses, u_slots, seg_id, vb, vc, vh, exact):
+    """Shared triage tail: static-edge counts -> novelty verdicts +
+    virgin updates (exact = the sequential parity scan)."""
+    if exact:
+        by_slot = counts_by_slot(counts, seg_id, u_slots.shape[0])
+        return _triage_exact(vb, vc, vh, classify_counts(by_slot),
+                             simplify_trace(by_slot), statuses, u_slots)
+    return static_triage(vb, vc, vh, counts, u_slots, seg_id,
+                         statuses == FUZZ_CRASH, statuses == FUZZ_HANG)
+
+
+def _judge(res, u_slots, seg_id, vb, vc, vh, exact):
+    """VM results -> (statuses with RUNNING as HANG, new_paths, uc,
+    uh, exit codes, vb', vc', vh', counts)."""
+    statuses = torch.where(res.status == FUZZ_RUNNING, FUZZ_HANG,
+                           res.status).to(torch.int32)
+    new_paths, uc, uh, vb2, vc2, vh2 = _triage_counts(
+        res.counts, statuses, u_slots, seg_id, vb, vc, vh, exact)
+    return (statuses, new_paths, uc, uh, res.exit_code, vb2, vc2, vh2,
+            res.counts)
+
+
+def _fused_step(instrs, edge_table, u_slots, seg_id, inputs, lengths,
+                vb, vc, vh, mem_size, max_steps, n_edges, exact):
+    """mutated batch -> VM exec -> static-edge triage.  The VM runs
+    as the CUDA kernel for CUDA tensors, the plain torch VM on the
+    CPU (ops/vm_kernel.run_batch)."""
+    res = vm_run_batch(instrs, edge_table, inputs, lengths, mem_size,
+                       max_steps, n_edges)
+    return _judge(res, u_slots, seg_id, vb, vc, vh, exact)
+
+
+def _compact(statuses, new_paths, bufs, lens):
+    """In-step compaction of the interesting lanes (crash, hang or new
+    path): (idx int32[cap], bufs, lens, count), idx filled with 0
+    past count."""
+    flags = (statuses != FUZZ_NONE) | (new_paths > 0)
+    lanes, count = compact_lanes(flags)
+    sel = lanes[:min(COMPACT_CAP, flags.shape[0])]
+    sl = sel.long()
+    return sel, bufs[sl], lens[sl], count
+
+
+def _fuzz_one(instrs, edge_table, u_slots, seg_id, seed_buf, seed_len,
+              base_key, its, vb, vc, vh, mem_size, max_steps, n_edges,
+              exact, stack_pow2, phase1_steps):
+    keys = prng.fold_in(base_key, its)
+    words = havoc_words_for_keys(keys, stack_pow2)
+    res, bufs, lens = fuzz_batch_2phase(
+        instrs, edge_table, seed_buf, seed_len, words, mem_size,
+        max_steps, n_edges, stack_pow2=stack_pow2,
+        phase1_steps=phase1_steps)
+    return _judge(res, u_slots, seg_id, vb, vc, vh, exact) + (bufs, lens)
+
+
+def _fused_fuzz_step(instrs, edge_table, u_slots, seg_id, seed_buf,
+                     seed_len, base_key, its, vb, vc, vh, mem_size,
+                     max_steps, n_edges, exact, stack_pow2,
+                     phase1_steps=0):
+    """The flagship product path: per-lane keys fold_in(base_key,
+    its), havoc words, havoc mutation AND VM execution in one kernel
+    (two-phase), static-edge triage, and the in-step compaction —
+    candidates are born, run and judged on the device.  ``its`` is an
+    int64 tensor of uint32 iteration numbers on the device."""
+    out = _fuzz_one(instrs, edge_table, u_slots, seg_id, seed_buf,
+                    seed_len, base_key, its, vb, vc, vh, mem_size,
+                    max_steps, n_edges, exact, stack_pow2, phase1_steps)
+    statuses, new_paths = out[0], out[1]
+    bufs, lens = out[9], out[10]
+    return out + (_compact(statuses, new_paths, bufs, lens),)
+
+
+def _fused_fuzz_multi(instrs, edge_table, u_slots, seg_id, seed_buf,
+                      seed_len, base_key, its0, vb, vc, vh, mem_size,
+                      max_steps, n_edges, exact, stack_pow2, k,
+                      phase1_steps=0):
+    """K fused fuzz steps in one call, virgin maps threaded through,
+    verdicts bit-packed on the device.  Step j executes iterations
+    ``its0 + j * len(its0)``: the candidate streams are bit-identical
+    to K sequential steps.  Returns (vb, vc, vh, packed u8[k, B], bufs
+    u8[k, B, L], lens i32[k, B], idx i32[k, C], sel_bufs u8[k, C, L],
+    sel_lens i32[k, C], count i32[k])."""
+    n = its0.shape[0]
+    outs = []
+    for step in range(k):
+        its = (its0 + step * n) & M32
+        (statuses, new_paths, uc, uh, _exit, vb, vc, vh, _counts, bufs,
+         lens) = _fuzz_one(instrs, edge_table, u_slots, seg_id, seed_buf,
+                           seed_len, base_key, its, vb, vc, vh, mem_size,
+                           max_steps, n_edges, exact, stack_pow2,
+                           phase1_steps)
+        packed = pack_verdicts(statuses, new_paths, uc, uh)
+        outs.append((packed, bufs, lens)
+                    + _compact(statuses, new_paths, bufs, lens))
+    return (vb, vc, vh) + tuple(torch.stack(col) for col in zip(*outs))
+
+
+# options of the reference whose machinery this package has not
+# ported yet: passing one (other than at its default) is an error
+_UNPORTED = ("edges", "gen_ring_slots", "gen_findings_cap", "gen_admits",
+             "gen_fold_every", "stateful", "msgs", "n_states",
+             "state_reg", "learn", "grammar", "grammar_stage")
+
+ENGINES = ("torch", "cuda", "cuda_fused")
+
+
+@register_instrumentation
+class JitHarnessInstrumentation(Instrumentation):
+    """Executes KBVM targets fully on-device with AFL-map triage."""
+    name = "jit_harness"
+    supports_batch = True
+    device_backed = True
+    OPTION_SCHEMA = {"target": str, "program_file": str, "max_steps": int,
+                     "novelty": str, "edges": int, "engine": str,
+                     "phase1_steps": int, "gen_ring_slots": int,
+                     "gen_findings_cap": int, "gen_admits": int,
+                     "gen_fold_every": int, "stateful": int,
+                     "msgs": int, "n_states": int, "state_reg": int,
+                     "learn": int, "grammar": str,
+                     "grammar_stage": int}
+    OPTION_DESCS = {
+        "target": "built-in KBVM target name (test/hang/libtest/"
+                  "tlvstack_vm/...)",
+        "program_file": "path to a .npz compiled KBVM program",
+        "max_steps": "override the program's hang step budget",
+        "novelty": '"exact" (sequential parity; the default, but '
+                   'auto-switches to throughput above 1024-lane '
+                   'batches) or "throughput"',
+        "engine": '"cuda" (default on the card: the CUDA VM kernel, '
+                  'fusing with havoc), "cuda_fused" (havoc and the VM '
+                  'in one kernel; the flagship path) or "torch" (the '
+                  'plain PyTorch VM; the default, and only engine, '
+                  'on the CPU)',
+        "phase1_steps": "fused-engine two-phase tail scheduling: "
+                        "phase-1 step budget (-1 = auto: max_steps/8 "
+                        "when max_steps >= 256; 0 = single phase)",
+        **{k: "not ported yet" for k in _UNPORTED},
+    }
+    DEFAULTS = {"novelty": "exact", "edges": 0, "phase1_steps": -1,
+                "gen_ring_slots": 32, "gen_findings_cap": 0,
+                "gen_admits": 8, "gen_fold_every": 0, "stateful": 0,
+                "msgs": 0, "n_states": 0, "state_reg": -1, "learn": 0,
+                "grammar": "", "grammar_stage": 128}
+
+    def __init__(self, options: Optional[str] = None, device="cuda"):
+        super().__init__(options)
+        self.device = resolve_device(device)
+        for key in _UNPORTED:
+            if self.options[key] != self.DEFAULTS[key]:
+                raise ValueError(f"jit_harness option {key!r} is not "
+                                 "ported yet")
+        self.program = prog = targets_mod.load_program_from_options(
+            self.options,
+            'jit_harness needs {"target": name} or '
+            '{"program_file": path}')
+        if self.options["novelty"] not in ("exact", "throughput"):
+            raise ValueError('novelty must be "exact" or "throughput"')
+        on_card = self.device.type == "cuda"
+        self.engine = self.options.get("engine",
+                                       "cuda" if on_card else "torch")
+        if self.engine not in ENGINES:
+            raise ValueError('engine must be "torch", "cuda" or '
+                             '"cuda_fused"')
+        if on_card and self.engine == "torch":
+            raise ValueError('engine "torch" runs on the CPU only '
+                             '(device "cpu"); on the card use "cuda" '
+                             'or "cuda_fused"')
+        if not on_card and self.engine != "torch":
+            raise ValueError(f'engine {self.engine!r} needs the CUDA '
+                             'card (device "cuda"); the CPU runs '
+                             'engine "torch"')
+        self._fuse_warned = False
+        p1 = int(self.options["phase1_steps"])
+        self.phase1_steps = auto_phase1_steps(prog.max_steps) \
+            if p1 < 0 else p1
+        self.exact = self.options["novelty"] == "exact"
+        # whether the user ASKED for exact (vs inheriting the default):
+        # the default flips to throughput above EXACT_BATCH_GATE lanes,
+        # an explicit request is honored (with a warning)
+        try:
+            raw_keys = json.loads(options) if options else {}
+        except ValueError:
+            raw_keys = {}
+        self._novelty_explicit = "novelty" in raw_keys
+        self._gate_warned = False
+        dev = self.device
+        self._instrs = torch.as_tensor(prog.instrs, device=dev)
+        self._edge_table = torch.as_tensor(prog.edge_table, device=dev)
+        u_slots, seg_id = make_static_maps(prog.edge_slot)
+        self._u_slots = torch.as_tensor(u_slots, device=dev)
+        self._seg_id = torch.as_tensor(seg_id, device=dev)
+        # one 64KB map per module, laid out flat
+        ms = prog.map_size
+        self.virgin_bits = torch.full((ms,), 0xFF, dtype=torch.uint8,
+                                      device=dev)
+        self.virgin_crash = self.virgin_bits.clone()
+        self.virgin_tmout = self.virgin_bits.clone()
+        self.total_execs = 0
+        self._lane_offsets: Dict[int, torch.Tensor] = {}
+        self._last_unique_crash = False
+        self._last_unique_hang = False
+
+    def _args(self):
+        p = self.program
+        return (p.mem_size, p.max_steps, p.n_edges, self.exact)
+
+    # -- batched --------------------------------------------------------
+
+    def _apply_exact_gate(self, b: int) -> None:
+        """Flip the DEFAULT novelty to throughput above the gate (an
+        explicit "exact" request is honored with a warning)."""
+        if not (self.exact and b > EXACT_BATCH_GATE) or self._gate_warned:
+            return
+        self._gate_warned = True
+        if self._novelty_explicit:
+            WARNING_MSG(
+                "jit_harness: exact novelty judges lanes "
+                "sequentially — batch %d will be slow (parity "
+                "gates only; use \"novelty\": \"throughput\" for "
+                "fuzzing)", b)
+        else:
+            WARNING_MSG(
+                "jit_harness: batch %d > %d — switching default "
+                "novelty to \"throughput\": same-step duplicates of a "
+                "new path each count (pass {\"novelty\": \"exact\"} to "
+                "force the sequential parity scan)", b,
+                EXACT_BATCH_GATE)
+            self.exact = False
+
+    def run_batch(self, inputs, lengths) -> BatchResult:
+        """Execute a uint8[B, L] batch; results stay device tensors."""
+        b = int(inputs.shape[0])
+        self._apply_exact_gate(b)
+        inputs = torch.as_tensor(inputs, dtype=torch.uint8,
+                                 device=self.device)
+        lengths = torch.as_tensor(lengths, dtype=torch.int32,
+                                  device=self.device)
+        (statuses, new_paths, uc, uh, exit_codes, vb, vc, vh,
+         _counts) = _fused_step(
+            self._instrs, self._edge_table, self._u_slots, self._seg_id,
+            inputs, lengths, self.virgin_bits, self.virgin_crash,
+            self.virgin_tmout, *self._args())
+        self.virgin_bits, self.virgin_crash, self.virgin_tmout = vb, vc, vh
+        self.total_execs += b
+        return BatchResult(statuses=statuses, new_paths=new_paths,
+                           unique_crashes=uc, unique_hangs=uh,
+                           exit_codes=exit_codes)
+
+    # -- fused mutate+execute (the flagship product path) ---------------
+
+    def wants_fused(self, mutator) -> bool:
+        """True when this instrumentation drives the one-kernel
+        mutate+execute path for ``mutator``: any CUDA engine fuses
+        with a fusable mutator (havoc) — the fused kernel consumes the
+        mutator's OWN per-lane keys, so candidates and verdicts are
+        bit-identical to the mutate-then-execute pipeline."""
+        fusable = getattr(mutator, "fused_spec", None) is not None
+        if self.engine == "cuda_fused" and not fusable \
+                and not self._fuse_warned:
+            self._fuse_warned = True
+            WARNING_MSG(
+                "jit_harness: engine \"cuda_fused\" needs a fusable "
+                "mutator (havoc); %s mutates separately — running the "
+                "unfused cuda engine",
+                getattr(mutator, "name", type(mutator).__name__))
+        return self.engine in ("cuda", "cuda_fused") and fusable
+
+    def _fused_inputs(self, mutator, its):
+        """The fused kernel's inputs on the device.  ``its`` is a run of
+        consecutive iteration numbers (``peek_iterations``): it is made
+        on the device from its first number, and the seed and key come
+        cached from the mutator, so a dispatch copies nothing from the
+        host — a pageable host copy would wait for the queued batches."""
+        seed, seed_len, base_key, stack_pow2 = mutator.fused_spec()
+        n = len(its)
+        start = int(its[0]) if n else 0
+        if n and int(its[-1]) - start != n - 1:
+            raise ValueError("fused paths take consecutive iterations")
+        ar = self._lane_offsets.get(n)
+        if ar is None:
+            ar = self._lane_offsets[n] = torch.arange(
+                n, dtype=torch.int64, device=self.device)
+        return (seed.to(self.device), int(seed_len),
+                base_key.to(self.device), (ar + start) & M32,
+                int(stack_pow2))
+
+    def run_batch_fused(self, mutator, its
+                        ) -> Tuple[BatchResult, Any, Any, CompactReport]:
+        """Execute iterations ``its`` of ``mutator`` (havoc) with
+        mutation fused into the VM kernel.  Returns (BatchResult,
+        mutant bufs uint8[B, L], lens int32[B], CompactReport), all
+        device tensors."""
+        n = len(its)
+        self._apply_exact_gate(n)
+        seed, seed_len, base_key, its, sp = self._fused_inputs(mutator,
+                                                               its)
+        (statuses, new_paths, uc, uh, exit_codes, vb, vc, vh, _counts,
+         bufs, lens, compact) = _fused_fuzz_step(
+            self._instrs, self._edge_table, self._u_slots, self._seg_id,
+            seed, seed_len, base_key, its, self.virgin_bits,
+            self.virgin_crash, self.virgin_tmout, *self._args(), sp,
+            self.phase1_steps)
+        self.virgin_bits, self.virgin_crash, self.virgin_tmout = vb, vc, vh
+        self.total_execs += n
+        return (BatchResult(statuses=statuses, new_paths=new_paths,
+                            unique_crashes=uc, unique_hangs=uh,
+                            exit_codes=exit_codes),
+                bufs, lens, CompactReport(*compact))
+
+    def run_batch_fused_multi(self, mutator, its, k: int):
+        """K fused steps in one call (see _fused_fuzz_multi).  Returns
+        (packed uint8[k, B], bufs uint8[k, B, L], lens int32[k, B],
+        (idx, bufs, lens, count) stacked compact), device tensors;
+        step j executed iterations ``its + j*len(its)``.  Callers
+        advance the mutator by k*len(its)."""
+        n = len(its)
+        self._apply_exact_gate(n)
+        seed, seed_len, base_key, its, sp = self._fused_inputs(mutator,
+                                                               its)
+        (vb, vc, vh, packed, bufs, lens, sel_idx, sel_bufs, sel_lens,
+         counts) = _fused_fuzz_multi(
+            self._instrs, self._edge_table, self._u_slots, self._seg_id,
+            seed, seed_len, base_key, its, self.virgin_bits,
+            self.virgin_crash, self.virgin_tmout, *self._args(), sp,
+            int(k), self.phase1_steps)
+        self.virgin_bits, self.virgin_crash, self.virgin_tmout = vb, vc, vh
+        self.total_execs += int(k) * n
+        return packed, bufs, lens, (sel_idx, sel_bufs, sel_lens, counts)
+
+    # -- single-exec shim ----------------------------------------------
+
+    def enable(self, input_bytes: Optional[bytes] = None,
+               cmd_line: Optional[str] = None) -> None:
+        if input_bytes is None:
+            raise ValueError("jit_harness needs input bytes")
+        L = max(((len(input_bytes) + 7) // 8) * 8, 8)
+        buf = np.zeros((1, L), dtype=np.uint8)
+        buf[0, :len(input_bytes)] = np.frombuffer(input_bytes,
+                                                  dtype=np.uint8)
+        res = self.run_batch(buf, np.array([len(input_bytes)],
+                                           dtype=np.int32))
+        self.last_status = int(res.statuses[0])
+        self.last_new_path = int(res.new_paths[0])
+        self._last_unique_crash = bool(res.unique_crashes[0])
+        self._last_unique_hang = bool(res.unique_hangs[0])
+
+    def last_unique_crash(self) -> bool:
+        return self._last_unique_crash
+
+    def last_unique_hang(self) -> bool:
+        return self._last_unique_hang
+
+    # -- state / merge --------------------------------------------------
+
+    def get_state(self) -> str:
+        d = {
+            "instrumentation": self.name,
+            "target": self.program.name,
+            "total_execs": self.total_execs,
+            "virgin_bits": encode_array(self.virgin_bits.cpu().numpy()),
+            "virgin_crash": encode_array(self.virgin_crash.cpu().numpy()),
+            "virgin_tmout": encode_array(self.virgin_tmout.cpu().numpy()),
+        }
+        if len(self.program.modules) > 1:
+            d["modules"] = list(self.program.module_names)
+        return json.dumps(d)
+
+    def _check_state_layout(self, d: Dict[str, Any], arr) -> None:
+        """States only interoperate across identical module layouts."""
+        if arr.shape != (self.program.map_size,):
+            raise ValueError(
+                f"state map is {arr.shape[0]} bytes but "
+                f"{self.program.name!r} has {self.program.map_size} "
+                f"({len(self.program.modules)} module(s))")
+        mods = d.get("modules")
+        if mods is not None and tuple(mods) != self.program.module_names:
+            raise ValueError(
+                f"state modules {mods} != {self.program.module_names}")
+
+    def _load_maps(self, d: Dict[str, Any]):
+        for key in ("virgin_bits", "virgin_crash", "virgin_tmout"):
+            if key in d:
+                arr = decode_array(d[key])
+                self._check_state_layout(d, arr)
+                yield key, torch.as_tensor(arr, device=self.device)
+
+    def set_state(self, state: str) -> None:
+        d = json.loads(state)
+        if d.get("instrumentation") not in (None, self.name):
+            raise ValueError(
+                f"state is for {d.get('instrumentation')!r}, not "
+                f"{self.name!r}")
+        self.total_execs = int(d.get("total_execs", 0))
+        for key, arr in self._load_maps(d):
+            setattr(self, key, arr)
+
+    def merge(self, other_state: str) -> None:
+        d = json.loads(other_state)
+        for key, arr in self._load_maps(d):
+            setattr(self, key, merge_virgin(getattr(self, key), arr))
+        self.total_execs += int(d.get("total_execs", 0))
+
+    def coverage_bytes(self) -> int:
+        """Touched virgin bytes (status reporting)."""
+        return int(count_non_255_bytes(self.virgin_bits))

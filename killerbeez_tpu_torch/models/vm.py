@@ -1,0 +1,422 @@
+"""KBVM — the batched bytecode VM, plain PyTorch engine.
+
+One VM lane executes one candidate input; a batch dimension runs
+thousands of lanes over a shared instruction tensor, with a static
+step budget (the hang timeout: "ran out of steps without HALT").
+
+Instruction format: int32[NI, 4] rows ``(opcode, a, b, c)``.
+
+  op  name    semantics
+  0   HALT    status = FUZZ_NONE, exit_code = a
+  1   BLOCK   coverage: cur = a; edge = cur ^ prev; prev = cur >> 1
+  2   LDB     r[a] = input[r[b]]  (0 if index out of [0, length))
+  3   LDI     r[a] = b
+  4   ALU     r[a] = r[b] <op c> r[(c >> 3) & 7] — c & 7 selects ADD/SUB/
+              AND/OR/XOR/SHL/SHR/MUL
+  5   ADDI    r[a] = r[b] + c
+  6   JMP     pc = a
+  7   BR      if r[a] <cmp b & 3> r[(b >> 2) & 7]: pc = c
+  8   CRASH   status = FUZZ_CRASH
+  9   LEN     r[a] = input length
+  10  LDM     r[a] = mem[r[b]]; out of bounds -> FUZZ_CRASH
+  11  STM     mem[r[a]] = r[b]; out of bounds -> FUZZ_CRASH
+
+Registers: 8 x int32. Scratch memory: ``mem_size`` x int32 per lane.
+Arithmetic wraps at 32 bits, shift counts clip to 0..31, SHR is
+logical, compares are signed.
+
+``_run_batch_impl`` here is the plain PyTorch version of the CUDA VM
+kernel (``ops/vm_kernel.py``) and the port of the JAX package's
+batched engine ``models/vm._run_batch_impl``: same five outputs, bit
+for bit.  It gathers per lane (the TPU's one-hot selects are not
+semantics) and carries int32 values in int64 so every wrap is explicit.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import NamedTuple, Optional, Tuple
+
+import numpy as np
+import torch
+
+from .. import FUZZ_CRASH, FUZZ_NONE, FUZZ_RUNNING, MAP_SIZE
+
+N_REGS = 8
+
+OP_HALT = 0
+OP_BLOCK = 1
+OP_LDB = 2
+OP_LDI = 3
+OP_ALU = 4
+OP_ADDI = 5
+OP_JMP = 6
+OP_BR = 7
+OP_CRASH = 8
+OP_LEN = 9
+OP_LDM = 10
+OP_STM = 11
+N_OPS = 12
+
+ALU_ADD, ALU_SUB, ALU_AND, ALU_OR, ALU_XOR, ALU_SHL, ALU_SHR, ALU_MUL = \
+    range(8)
+CMP_EQ, CMP_NE, CMP_LT, CMP_GE = range(4)
+
+M32 = 0xFFFFFFFF
+
+
+@dataclass(frozen=True)
+class Program:
+    """A compiled target: shared instruction tensor + metadata.
+
+    The coverage-edge universe of a KBVM program is static: every
+    possible (prev BLOCK, next BLOCK) pair is enumerable from the
+    instruction graph.  ``__post_init__`` derives it once
+    (``compute_edges``), so the engines count hits in a dense
+    uint8[B, n_edges+1] table and triage runs over the few hundred
+    real edges.
+
+    Derived fields (filled automatically):
+      edge_from  int32[E]  source block index (-1 = program entry)
+      edge_to    int32[E]  destination block index
+      edge_slot  int32[E]  AFL map slot: to_id ^ (from_id >> 1)
+      edge_table int32[n_blocks+1, n_blocks]  (from+1, to) -> edge
+                 index; impossible pairs -> E (overflow column)
+    """
+    instrs: np.ndarray            # int32[NI, 4]
+    name: str = "anon"
+    mem_size: int = 64
+    max_steps: int = 256          # hang budget (per-exec step cap)
+    n_blocks: int = 0             # number of BLOCK instructions
+    block_ids: Tuple[int, ...] = ()
+    modules: Tuple[Tuple[str, int, int], ...] = ()  # (name, lo, hi) blocks
+    edge_from: Optional[np.ndarray] = None
+    edge_to: Optional[np.ndarray] = None
+    edge_slot: Optional[np.ndarray] = None
+    edge_table: Optional[np.ndarray] = None
+
+    def __post_init__(self):
+        assert self.instrs.ndim == 2 and self.instrs.shape[1] == 4
+        assert self.instrs.dtype == np.int32
+        # the bound the reference's f32-matmul fetch needs; kept so
+        # both packages accept exactly the same programs
+        if np.abs(self.instrs[:, 1:]).max(initial=0) >= (1 << 24):
+            raise ValueError(
+                "instruction field exceeds the batched engine's 2^24 "
+                "exact-integer bound; build large constants with shl/or")
+        if self.edge_table is None:
+            instrs, ef, et, es, tbl, n_blocks, ids = compute_edges(
+                self.instrs)
+            object.__setattr__(self, "instrs", instrs)
+            object.__setattr__(self, "edge_from", ef)
+            object.__setattr__(self, "edge_to", et)
+            object.__setattr__(self, "edge_table", tbl)
+            if not self.n_blocks:
+                object.__setattr__(self, "n_blocks", n_blocks)
+            if not self.block_ids:
+                object.__setattr__(self, "block_ids", ids)
+            if not self.modules:
+                object.__setattr__(
+                    self, "modules", (("target", 0, self.n_blocks),))
+            # per-module slot spaces: an edge lands in the map of its
+            # DESTINATION block's module, at offset module * MAP_SIZE
+            mod_of_block = np.zeros(max(self.n_blocks, 1),
+                                    dtype=np.int64)
+            for m, (_, lo, hi) in enumerate(self.modules):
+                mod_of_block[lo:hi] = m
+            es = es + (mod_of_block[et] * MAP_SIZE if len(et)
+                       else 0)
+            object.__setattr__(self, "edge_slot", es.astype(np.int32))
+        n_dup = self.n_blocks - len(set(self.block_ids))
+        if n_dup > 0:
+            from ..utils.logging import WARNING_MSG
+            WARNING_MSG(
+                "program %r: %d duplicate coverage id(s) among %d "
+                "blocks alias in the AFL map", self.name, n_dup,
+                self.n_blocks)
+
+    @classmethod
+    def from_arrays(cls, instrs, name: str = "anon", mem_size: int = 64,
+                    max_steps: int = 256, n_blocks: int = 0,
+                    block_ids=(), modules=()) -> "Program":
+        """A Program from another package's fields (numpy arrays and
+        plain tuples, e.g. the JAX ``Program``'s).  The derived edge
+        tables are recomputed here, never copied."""
+        return cls(instrs=np.asarray(instrs, dtype=np.int32).copy(),
+                   name=str(name), mem_size=int(mem_size),
+                   max_steps=int(max_steps), n_blocks=int(n_blocks),
+                   block_ids=tuple(int(b) for b in block_ids),
+                   modules=tuple((str(n), int(lo), int(hi))
+                                 for n, lo, hi in modules))
+
+    @property
+    def n_edges(self) -> int:
+        return int(self.edge_from.shape[0])
+
+    @property
+    def map_size(self) -> int:
+        """Total coverage-map bytes: one 64KB map per module."""
+        return max(len(self.modules), 1) * MAP_SIZE
+
+    @property
+    def module_names(self) -> Tuple[str, ...]:
+        return tuple(m[0] for m in self.modules)
+
+
+def compute_edges(instrs: np.ndarray):
+    """Enumerate the static edge universe of an instruction tensor.
+
+    Returns ``(instrs', edge_from, edge_to, edge_slot, edge_table,
+    n_blocks, block_ids)`` where instrs' is a copy with each BLOCK
+    row's b field set to the block's ordinal index (the engine reads
+    it to key the edge table).
+
+    An edge (f, t) exists when some instruction path runs from block
+    f's body to block t's BLOCK head without crossing another BLOCK;
+    f = -1 models the entry path (prev_loc starts at 0, so the slot is
+    just t's id).
+    """
+    ni = instrs.shape[0]
+    instrs = instrs.copy()
+    block_pcs = [pc for pc in range(ni) if instrs[pc, 0] == OP_BLOCK]
+    idx_of_pc = {pc: k for k, pc in enumerate(block_pcs)}
+    for k, pc in enumerate(block_pcs):
+        instrs[pc, 2] = k
+    nb = len(block_pcs)
+    ids = tuple(int(instrs[pc, 1]) & (MAP_SIZE - 1) for pc in block_pcs)
+
+    def succs(pc):
+        op, a, b, c = instrs[pc]
+        if op in (OP_HALT, OP_CRASH):
+            return []
+        if op == OP_JMP:
+            return [int(a)]
+        if op == OP_BR:
+            return [int(c), pc + 1]
+        return [pc + 1]
+
+    pairs = set()
+
+    def walk(from_idx, start_pc):
+        seen = set()
+        stack = [start_pc]
+        while stack:
+            pc = stack.pop()
+            if pc in seen or pc < 0 or pc >= ni:
+                continue           # out-of-range pc = crash, no edge
+            seen.add(pc)
+            if instrs[pc, 0] == OP_BLOCK:
+                pairs.add((from_idx, idx_of_pc[pc]))
+                continue
+            stack.extend(succs(pc))
+
+    walk(-1, 0)
+    for k, pc in enumerate(block_pcs):
+        walk(k, pc + 1)
+
+    order = sorted(pairs)
+    e = len(order)
+    edge_from = np.array([f for f, _ in order] or [], dtype=np.int32)
+    edge_to = np.array([t for _, t in order] or [], dtype=np.int32)
+    slot = []
+    for f, t in order:
+        prev_loc = 0 if f < 0 else (ids[f] >> 1)
+        slot.append(ids[t] ^ prev_loc)
+    edge_slot = np.array(slot or [], dtype=np.int32)
+    edge_table = np.full((nb + 1, max(nb, 1)), e, dtype=np.int32)
+    for k, (f, t) in enumerate(order):
+        edge_table[f + 1, t] = k
+    return (instrs, edge_from, edge_to, edge_slot, edge_table, nb, ids)
+
+
+class VMResult(NamedTuple):
+    """Per-lane execution outcome (torch tensors on the batch's
+    device).  ``counts`` is the hit-count table over the program's
+    static edge universe (last column = overflow for pairs outside
+    it); ``path_hash`` is the order-aware murmur fold of the block
+    ids a lane executed, a uint32 carried in int64."""
+    status: torch.Tensor      # int32[B]: FUZZ_NONE / FUZZ_CRASH / RUNNING
+    exit_code: torch.Tensor   # int32[B]
+    counts: torch.Tensor      # uint8[B, E+1] static-edge hit counts
+    steps: torch.Tensor       # int32[B] steps actually executed
+    path_hash: torch.Tensor   # int64[B] holding uint32
+
+
+def _wrap32(x: torch.Tensor) -> torch.Tensor:
+    """int64 -> the int32 value with the same low 32 bits (still in
+    int64): two's-complement wrap, written out so it is defined."""
+    return ((x + (1 << 31)) & M32) - (1 << 31)
+
+
+def _mix32(x: torch.Tensor) -> torch.Tensor:
+    """murmur3 finalizer over uint32 values carried in int64."""
+    x = x ^ (x >> 16)
+    x = (x * 0x85EBCA6B) & M32
+    x = x ^ (x >> 13)
+    x = (x * 0xC2B2AE35) & M32
+    x = x ^ (x >> 16)
+    return x
+
+
+def _step_batched(instrs, edge_table, inputs, lengths, mem_size, state):
+    """One VM step for every lane of ``state`` (all running at entry
+    or frozen: lanes that are not running change nothing).  State is
+    int64: (pc, regs [B, 9], mem [B, mem_size + 1], status, exit_code,
+    prev_idx, counts [B, E+1], path_hash, lane_steps); the last column
+    of regs and mem is a sink for writes that do not happen.  regs,
+    mem and counts are updated in place."""
+    (pc, regs, mem, status, exit_code, prev_idx, counts, path_hash,
+     lane_steps) = state
+    ni = instrs.shape[0]
+    L = inputs.shape[1]
+    nb = edge_table.shape[1]
+    running = status == FUZZ_RUNNING
+
+    row = instrs[pc.clamp(0, ni - 1)]                       # [B, 4]
+    op, a, b, c = row.unbind(1)
+
+    def reg(i):
+        return regs.gather(1, i[:, None])[:, 0]
+
+    ra = reg(a.clamp(0, N_REGS - 1))
+    rb = reg(b.clamp(0, N_REGS - 1))
+    ry = reg((c >> 3) & (N_REGS - 1))
+    cmp_y = reg((b >> 2) & (N_REGS - 1))
+    alu_sel = c & 7
+    cmp_sel = b & 3
+
+    ldb_ok = (rb >= 0) & (rb < lengths)
+    ldb_val = inputs.gather(1, rb.clamp(0, L - 1)[:, None])[:, 0]
+    ldb_val = torch.where(ldb_ok, ldb_val, 0)
+
+    x, y = rb, ry
+    shift = y.clamp(0, 31)
+    alu_val = torch.zeros_like(x)
+    for sel, val in ((ALU_ADD, lambda: x + y), (ALU_SUB, lambda: x - y),
+                     (ALU_AND, lambda: x & y), (ALU_OR, lambda: x | y),
+                     (ALU_XOR, lambda: x ^ y),
+                     (ALU_SHL, lambda: (x & M32) << shift),
+                     (ALU_SHR, lambda: (x & M32) >> shift),
+                     (ALU_MUL, lambda: x * y)):
+        alu_val = torch.where(alu_sel == sel, val(), alu_val)
+    alu_val = _wrap32(alu_val)
+    taken = torch.where(
+        cmp_sel == CMP_EQ, ra == cmp_y,
+        torch.where(cmp_sel == CMP_NE, ra != cmp_y,
+                    torch.where(cmp_sel == CMP_LT, ra < cmp_y,
+                                ra >= cmp_y)))
+
+    mem_ok_ld = (rb >= 0) & (rb < mem_size)
+    ldm_val = mem.gather(1, rb.clamp(0, mem_size - 1)[:, None])[:, 0]
+    ldm_val = torch.where(mem_ok_ld, ldm_val, 0)
+    mem_ok_st = (ra >= 0) & (ra < mem_size)
+
+    nxt = pc + 1
+    new_pc = torch.where(op == OP_JMP, a,
+                         torch.where((op == OP_BR) & taken, c, nxt))
+    wr_val = torch.zeros_like(pc)
+    for o, val in ((OP_LDB, ldb_val), (OP_LDI, b), (OP_ALU, alu_val),
+                   (OP_ADDI, _wrap32(rb + c)), (OP_LEN, lengths),
+                   (OP_LDM, ldm_val)):
+        wr_val = torch.where(op == o, val, wr_val)
+    writes_reg = ((op == OP_LDB) | (op == OP_LDI) | (op == OP_ALU)
+                  | (op == OP_ADDI) | (op == OP_LEN) | (op == OP_LDM))
+    regs.scatter_(1, torch.where(writes_reg & running,
+                                 a.clamp(0, N_REGS - 1), N_REGS)[:, None],
+                  wr_val[:, None])
+    do_store = (op == OP_STM) & mem_ok_st & running
+    mem.scatter_(1, torch.where(do_store, ra.clamp(0, mem_size - 1),
+                                mem_size)[:, None], rb[:, None])
+
+    crashes = ((op == OP_CRASH) | ((op == OP_LDM) & ~mem_ok_ld)
+               | ((op == OP_STM) & ~mem_ok_st) | (pc < 0) | (pc >= ni))
+    halts = op == OP_HALT
+    new_status = torch.where(
+        crashes, FUZZ_CRASH, torch.where(halts, FUZZ_NONE, status))
+    new_exit = torch.where(halts & running, a, exit_code)
+
+    is_block = (op == OP_BLOCK) & running
+    cur_loc = a & (MAP_SIZE - 1)
+    cur_idx = b.clamp(0, nb - 1)
+    eidx = edge_table[prev_idx, cur_idx]
+    counts.scatter_add_(1, eidx[:, None],
+                        is_block.to(counts.dtype)[:, None])
+    new_prev_idx = torch.where(is_block, cur_idx + 1, prev_idx)
+    new_hash = torch.where(is_block, _mix32(path_hash ^ cur_loc),
+                           path_hash)
+
+    return (torch.where(running, new_pc, pc), regs, mem,
+            torch.where(running, new_status, status),
+            torch.where(running, new_exit, exit_code),
+            new_prev_idx, counts, new_hash,
+            lane_steps + running.to(lane_steps.dtype))
+
+
+def _run_batch_impl(instrs, edge_table, inputs, lengths, mem_size,
+                    max_steps, n_edges) -> VMResult:
+    """Run a uint8[B, L] batch to halt, crash or ``max_steps``: the
+    plain PyTorch VM.  ``instrs``/``edge_table`` are int tensors.
+
+    Every 16 steps the lanes that stopped running are retired: their
+    outputs are written and the step continues on the lanes still
+    running only (a stopped lane's state never changes, so this is
+    the same result at a fraction of the work)."""
+    dev = inputs.device
+    b = inputs.shape[0]
+
+    def zeros(*shape):
+        return torch.zeros(shape, dtype=torch.int64, device=dev)
+
+    out = VMResult(status=torch.full((b,), FUZZ_RUNNING, dtype=torch.int32,
+                                     device=dev),
+                   exit_code=torch.zeros(b, dtype=torch.int32, device=dev),
+                   counts=torch.zeros((b, n_edges + 1), dtype=torch.uint8,
+                                      device=dev),
+                   steps=torch.zeros(b, dtype=torch.int32, device=dev),
+                   path_hash=zeros(b))
+    state = (zeros(b), zeros(b, N_REGS + 1), zeros(b, mem_size + 1),
+             torch.full((b,), FUZZ_RUNNING, dtype=torch.int64, device=dev),
+             zeros(b), zeros(b), zeros(b, n_edges + 1), zeros(b), zeros(b))
+    instrs = instrs.to(device=dev, dtype=torch.int64)
+    edge_table = edge_table.to(device=dev, dtype=torch.int64)
+    inputs = inputs.to(torch.int64)
+    lengths = lengths.to(device=dev, dtype=torch.int64)
+    lanes = torch.arange(b, device=dev)
+
+    def retire(sel):
+        idx = lanes[sel]
+        out.status[idx] = state[3][sel].to(torch.int32)
+        out.exit_code[idx] = state[4][sel].to(torch.int32)
+        out.counts[idx] = (state[6][sel] & 0xFF).to(torch.uint8)
+        out.steps[idx] = state[8][sel].to(torch.int32)
+        out.path_hash[idx] = state[7][sel]
+
+    for i in range(max_steps):
+        if i % 16 == 0:
+            running = state[3] == FUZZ_RUNNING
+            if not bool(running.all()):
+                retire(~running)
+                if not bool(running.any()):
+                    lanes = lanes[:0]
+                    break
+                state = tuple(t[running] for t in state)
+                inputs, lengths, lanes = (inputs[running],
+                                          lengths[running],
+                                          lanes[running])
+        state = _step_batched(instrs, edge_table, inputs, lengths,
+                              mem_size, state)
+    if lanes.numel():
+        retire(torch.ones(lanes.shape[0], dtype=torch.bool, device=dev))
+    return out
+
+
+def run_batch(program: Program, inputs: torch.Tensor,
+              lengths: torch.Tensor) -> VMResult:
+    """Execute a uint8[B, L] candidate batch through the program with
+    the plain engine.  Lanes still RUNNING after ``max_steps`` are
+    hangs (callers map FUZZ_RUNNING -> FUZZ_HANG)."""
+    dev = inputs.device
+    return _run_batch_impl(torch.as_tensor(program.instrs, device=dev),
+                           torch.as_tensor(program.edge_table, device=dev),
+                           inputs, lengths, program.mem_size,
+                           program.max_steps, program.n_edges)

@@ -1,0 +1,279 @@
+"""The KBVM kernels: wrappers, plain versions and two-phase glue.
+
+Port of the JAX package's ``ops/vm_kernel.py``, whose Pallas kernels
+become CUDA C++ kernels for Hopper (``csrc/vm_kernel.cu``):
+
+  * ``fuzz_batch``  -> ``kbz_fuzz_kernel`` (replaces ``_fuzz_kernel``,
+    ``fuzz_batch_pallas``): havoc mutation AND VM execution in one
+    kernel, one thread per lane;
+  * ``run_batch``   -> ``kbz_vm_kernel`` (replaces ``_vm_kernel_skip``
+    and ``_vm_kernel``, ``run_batch_pallas``): the VM over given
+    inputs, optionally over a list of lanes only.
+
+Each wrapper takes its plain PyTorch version for tensors on the CPU,
+and only then; for CUDA tensors it launches the kernel or raises.
+``LAUNCHES`` counts the kernel launches of each wrapper.
+
+Layouts are lane-major: inputs u8[B, L], havoc words int32[B, W]
+(uint32 bits), counts u8[B, E+1]; the path hash comes back as int64
+holding the uint32.  The TPU-only devices of the reference (one-hot
+MXU gathers, lane-tile padding, int16 count narrowing) are not
+semantics and have no counterpart here: results for a lane do not
+depend on the batch around it.
+"""
+
+from __future__ import annotations
+
+from typing import Optional, Tuple
+
+import torch
+
+from .. import FUZZ_NONE, FUZZ_RUNNING
+from ..models.vm import VMResult, _run_batch_impl
+from . import prng
+from .mutate_core import havoc_at
+
+M32 = 0xFFFFFFFF
+
+#: kernel launches made by the wrappers (plain-version calls on CPU
+#: tensors do not count)
+LAUNCHES = {"kbz_fuzz_kernel": 0, "kbz_vm_kernel": 0}
+
+
+def _i32_bits(x: torch.Tensor) -> torch.Tensor:
+    """int64 holding uint32 -> int32 with the same bits."""
+    return (((x & M32) ^ (1 << 31)) - (1 << 31)).to(torch.int32)
+
+
+def _check(cond: bool, msg: str) -> None:
+    if not cond:
+        raise ValueError(msg)
+
+
+def _launch_check(rc: int, name: str) -> None:
+    if rc != 0:
+        raise RuntimeError(f"{name} launch failed: CUDA error {rc}")
+
+
+def _tables(instrs, edge_table, dev):
+    instrs = instrs.to(device=dev, dtype=torch.int32).contiguous()
+    table = edge_table.to(device=dev, dtype=torch.int32).contiguous()
+    _check(instrs.dim() == 2 and instrs.shape[1] == 4 and
+           instrs.shape[0] > 0, "instrs must be int32[NI, 4], NI > 0")
+    _check(table.dim() == 2 and table.shape[0] == table.shape[1] + 1,
+           "edge_table must be int32[nb + 1, nb]")
+    return instrs, table
+
+
+# --------------------------------------------------------------------
+# the VM kernel (kbz_vm_kernel) and its plain version
+# --------------------------------------------------------------------
+
+def compact_lanes(mask: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The lanes where ``mask`` holds, in lane order, without a host
+    sync: int32[B] (entries past the count are 0) and the count as an
+    int32 device scalar."""
+    b = mask.shape[0]
+    pos = torch.cumsum(mask.to(torch.int64), 0) - 1
+    target = torch.where(mask, pos, b)
+    out = torch.zeros(b + 1, dtype=torch.int32, device=mask.device)
+    out.scatter_(0, target, torch.arange(b, dtype=torch.int32,
+                                         device=mask.device))
+    return out[:b], mask.sum().to(torch.int32)
+
+
+def _empty_result(b, n_edges, dev):
+    return VMResult(
+        status=torch.full((b,), FUZZ_NONE, dtype=torch.int32, device=dev),
+        exit_code=torch.zeros(b, dtype=torch.int32, device=dev),
+        counts=torch.zeros((b, n_edges + 1), dtype=torch.uint8, device=dev),
+        steps=torch.zeros(b, dtype=torch.int32, device=dev),
+        path_hash=torch.zeros(b, dtype=torch.int64, device=dev))
+
+
+def run_batch_plain(instrs, edge_table, inputs, lengths, mem_size,
+                    max_steps, n_edges, lanes=None, n_lanes=None
+                    ) -> VMResult:
+    """The plain PyTorch version of ``kbz_vm_kernel``: the torch VM
+    (``models/vm._run_batch_impl``) over every lane, or over the first
+    ``n_lanes`` entries of ``lanes`` with every other lane FUZZ_NONE
+    and zero (the reference's skip-mask contract)."""
+    if lanes is None:
+        return _run_batch_impl(instrs, edge_table, inputs, lengths,
+                               mem_size, max_steps, n_edges)
+    idx = lanes[:int(n_lanes)].long()
+    sub = _run_batch_impl(instrs, edge_table, inputs[idx], lengths[idx],
+                          mem_size, max_steps, n_edges)
+    out = _empty_result(inputs.shape[0], n_edges, inputs.device)
+    for full, part in zip(out, sub):
+        full[idx] = part
+    return out
+
+
+def run_batch(instrs, edge_table, inputs, lengths, mem_size, max_steps,
+              n_edges, lanes: Optional[torch.Tensor] = None,
+              n_lanes: Optional[torch.Tensor] = None) -> VMResult:
+    """Run the KBVM over a uint8[B, L] batch (``kbz_vm_kernel``).
+
+    ``lanes`` (int32[>= n_lanes]) with ``n_lanes`` (int32 scalar
+    tensor on the same device) restricts execution to those lanes;
+    the rest come back FUZZ_NONE with zero counts, steps and hash.
+    CPU tensors take the plain version; CUDA tensors the kernel."""
+    dev = inputs.device
+    if dev.type == "cpu":
+        return run_batch_plain(instrs, edge_table, inputs, lengths,
+                               mem_size, max_steps, n_edges, lanes,
+                               n_lanes)
+    _check(dev.type == "cuda", f"run_batch: unsupported device {dev}")
+    _check(inputs.dtype == torch.uint8 and inputs.dim() == 2,
+           "inputs must be uint8[B, L]")
+    _check((lanes is None) == (n_lanes is None),
+           "lanes and n_lanes go together")
+    b, L = inputs.shape
+    instrs, table = _tables(instrs, edge_table, dev)
+    inputs = inputs.contiguous()
+    lengths = lengths.to(device=dev, dtype=torch.int32).contiguous()
+    _check(lengths.shape == (b,), "lengths must be int32[B]")
+    n_threads = b
+    lanes_p = n_lanes_p = None
+    if lanes is not None:
+        lanes = lanes.to(device=dev, dtype=torch.int32).contiguous()
+        n_lanes = n_lanes.to(device=dev, dtype=torch.int32).reshape(1)
+        n_threads = int(lanes.shape[0])
+        _check(n_threads <= b, "more lanes than the batch holds")
+        lanes_p, n_lanes_p = lanes.data_ptr(), n_lanes.data_ptr()
+    out = _empty_result(b, n_edges, dev)
+    hash32 = torch.zeros(b, dtype=torch.int32, device=dev)
+    mem = torch.empty((max(mem_size, 1), max(n_threads, 1)),
+                      dtype=torch.int32, device=dev)
+    from ._build import load
+    lib = load("vm_kernel")
+    rc = lib.kbz_vm_launch(
+        instrs.data_ptr(), instrs.shape[0], table.data_ptr(),
+        table.shape[1], inputs.data_ptr(), L, lengths.data_ptr(),
+        lanes_p, n_lanes_p, n_threads, mem_size, max_steps, n_edges,
+        mem.data_ptr(), out.status.data_ptr(), out.exit_code.data_ptr(),
+        out.counts.data_ptr(), out.steps.data_ptr(), hash32.data_ptr(),
+        torch.cuda.current_stream(dev).cuda_stream)
+    _launch_check(rc, "kbz_vm_kernel")
+    LAUNCHES["kbz_vm_kernel"] += 1
+    return out._replace(path_hash=hash32.to(torch.int64) & M32)
+
+
+# --------------------------------------------------------------------
+# the fused havoc + VM kernel (kbz_fuzz_kernel) and its plain version
+# --------------------------------------------------------------------
+
+def havoc_words_for_keys(keys: torch.Tensor, stack_pow2: int = 4
+                         ) -> torch.Tensor:
+    """The per-lane havoc words, one row per key (int64 [B, 2] raw
+    keys): exactly ``havoc_at``'s stream in the JAX package, one
+    ``bits(key, (2**stack_pow2 + 1, 8))`` draw per lane.  Returns
+    int32[B, (2**stack_pow2 + 1) * 8] holding the uint32 bits."""
+    n_words = ((1 << stack_pow2) + 1) * 8
+    return _i32_bits(prng.bits(keys, n_words))
+
+
+def havoc_words(key: torch.Tensor, b: int, stack_pow2: int = 4
+                ) -> torch.Tensor:
+    """havoc_words_for_keys over fold_in(key, 0..b-1)."""
+    its = torch.arange(b, dtype=torch.int64, device=key.device)
+    return havoc_words_for_keys(prng.fold_in(key, its), stack_pow2)
+
+
+def fuzz_batch_plain(instrs, edge_table, seed_buf, seed_len, words,
+                     mem_size, max_steps, n_edges, stack_pow2=4):
+    """The plain PyTorch version of ``kbz_fuzz_kernel``: ``havoc_at``
+    then the torch VM."""
+    bufs, lens = havoc_at(seed_buf, seed_len, words, stack_pow2)
+    res = _run_batch_impl(instrs, edge_table, bufs, lens, mem_size,
+                          max_steps, n_edges)
+    return res, bufs, lens
+
+
+def fuzz_batch(instrs, edge_table, seed_buf, seed_len, words, mem_size,
+               max_steps, n_edges, stack_pow2=4):
+    """Fused fuzz step (``kbz_fuzz_kernel``): every lane starts from
+    the seed, applies its stacked havoc edits drawn from its row of
+    ``words`` (from havoc_words), and runs the mutant through the VM.
+    ``seed_buf`` uint8[L].  Returns (VMResult, bufs uint8[B, L], lens
+    int32[B]).  CPU tensors take the plain version; CUDA the kernel."""
+    dev = words.device
+    n_words = ((1 << stack_pow2) + 1) * 8
+    _check(words.dim() == 2 and words.shape[1] == n_words,
+           f"words must be [B, {n_words}] for stack_pow2={stack_pow2} "
+           "(generate with havoc_words)")
+    _check(1 <= stack_pow2 <= 7, "stack_pow2 must be in 1..7")
+    if dev.type == "cpu":
+        return fuzz_batch_plain(instrs, edge_table, seed_buf, seed_len,
+                                words, mem_size, max_steps, n_edges,
+                                stack_pow2)
+    _check(dev.type == "cuda", f"fuzz_batch: unsupported device {dev}")
+    b = words.shape[0]
+    seed = seed_buf.to(device=dev, dtype=torch.uint8).contiguous()
+    L = int(seed.shape[0])
+    _check(seed.dim() == 1 and L > 0, "seed_buf must be uint8[L]")
+    seed_len = int(seed_len)
+    _check(1 <= seed_len <= L, "seed_len must be in 1..L")
+    instrs, table = _tables(instrs, edge_table, dev)
+    words = words.to(torch.int32).contiguous()
+    res = _empty_result(b, n_edges, dev)
+    hash32 = torch.zeros(b, dtype=torch.int32, device=dev)
+    bufs = torch.empty((b, L), dtype=torch.uint8, device=dev)
+    lens = torch.empty(b, dtype=torch.int32, device=dev)
+    scratch = torch.empty((b, L), dtype=torch.uint8, device=dev)
+    mem = torch.empty((max(mem_size, 1), max(b, 1)), dtype=torch.int32,
+                      device=dev)
+    from ._build import load
+    lib = load("vm_kernel")
+    rc = lib.kbz_fuzz_launch(
+        instrs.data_ptr(), instrs.shape[0], table.data_ptr(),
+        table.shape[1], seed.data_ptr(), L, seed_len, words.data_ptr(),
+        n_words, stack_pow2, b, mem_size, max_steps, n_edges,
+        scratch.data_ptr(), mem.data_ptr(), res.status.data_ptr(),
+        res.exit_code.data_ptr(), res.counts.data_ptr(),
+        res.steps.data_ptr(), hash32.data_ptr(), bufs.data_ptr(),
+        lens.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
+    _launch_check(rc, "kbz_fuzz_kernel")
+    LAUNCHES["kbz_fuzz_kernel"] += 1
+    return res._replace(path_hash=hash32.to(torch.int64) & M32), bufs, lens
+
+
+# --------------------------------------------------------------------
+# two-phase scheduling
+# --------------------------------------------------------------------
+#
+# A warp (like a TPU tile) runs until its deepest lane halts, and
+# mutant depth is heavy-tailed.  Phase 1 runs the fused kernel with a
+# small budget; the lanes still running are re-executed from scratch
+# with the full budget by the VM kernel over their lane list, and the
+# results are mixed back.  Bit-identical to a single phase: finished
+# lanes' fields are final, and survivors re-run deterministically.
+
+def auto_phase1_steps(max_steps: int) -> int:
+    """The default phase-1 budget: max_steps/8 on deep targets,
+    single phase on shallow ones (max_steps < 256)."""
+    return max_steps // 8 if max_steps >= 256 else 0
+
+
+def fuzz_batch_2phase(instrs, edge_table, seed_buf, seed_len, words,
+                      mem_size, max_steps, n_edges, stack_pow2=4,
+                      phase1_steps=0):
+    """fuzz_batch with two-phase tail scheduling.  ``phase1_steps``:
+    <0 = auto (auto_phase1_steps); 0 or >= max_steps = single phase."""
+    if phase1_steps < 0:
+        phase1_steps = auto_phase1_steps(max_steps)
+    res1, bufs, lens = fuzz_batch(
+        instrs, edge_table, seed_buf, seed_len, words, mem_size,
+        min(phase1_steps, max_steps) if phase1_steps else max_steps,
+        n_edges, stack_pow2=stack_pow2)
+    if not phase1_steps or phase1_steps >= max_steps:
+        return res1, bufs, lens
+    surv = res1.status == FUZZ_RUNNING
+    lanes, n_lanes = compact_lanes(surv)
+    res2 = run_batch(instrs, edge_table, bufs, lens, mem_size, max_steps,
+                     n_edges, lanes=lanes, n_lanes=n_lanes)
+    res = VMResult(*(torch.where(surv if f1.dim() == 1 else surv[:, None],
+                                 f2, f1)
+                     for f1, f2 in zip(res1, res2)))
+    return res, bufs, lens
