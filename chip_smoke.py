@@ -10,14 +10,21 @@ It builds the CUDA kernels from ``killerbeez_tpu_torch/csrc`` and:
      CUDA versions and the kernel build time;
   2. at the flagship shapes (target tlvstack_vm, B = 65536 lanes,
      L = 64, havoc stack_pow2 4) holds ``kbz_fuzz_kernel`` (at the
-     phase-1 budget the main path gives it) against its plain PyTorch
-     version on all seven outputs, ``kbz_vm_kernel`` with and without a
-     lane list against the plain VM, and the two-phase glue against a
-     single phase — all bit-identical (tolerance: none; integer
-     semantics) — and times each kernel and its plain version, and
-     each device stage of a flagship batch (havoc words, phase 1, phase
-     2, triage, packing), with CUDA events (median of several runs
-     after a warm-up);
+     phase-1 budget the main path gives it; it draws each lane's havoc
+     words from the base key and the lane's iteration number) against
+     its plain PyTorch version on all seven outputs, ``kbz_vm_kernel``
+     with and without a lane list against the plain VM, and the
+     two-phase glue against a single phase; then both kernels again on
+     fixedform_vm, whose edge table is read from device memory instead
+     of shared memory, and on tlvstack_vm with inputs of 4096 bytes and
+     with 8000 edges, whose lanes' buffers or counts rows do not fit
+     shared memory and live in device memory — all bit-identical
+     (tolerance: none; integer semantics) — and times each kernel and
+     its plain version, and
+     each device stage of a flagship batch (phase 1, phase 2, triage,
+     packing), with CUDA events (median of several runs after a
+     warm-up), and prints each kernel's launch shape (block size, grid,
+     shared memory per block, resident blocks per SM);
   3. drives the main path: the port's CLI in a subprocess, ``file
      jit_harness havoc -b 65536 -n 1572864 -fb 0`` with engine
      cuda_fused (three superbatches of 8 x 65536 lanes); requires exit
@@ -40,8 +47,8 @@ work: the larger of the bytes it must move (each input read once, each
 output written once) at 3.35 TB/s, and its integer operations at
 16.7 TOP/s (132 SMs x 64 INT32 lanes x 1.98 GHz; the H100 SXM has no
 faster path for this work).  The operations are what this run's data
-needs by the VM's and havoc's semantics, not what the kernel issues:
-see ``vm_ops`` and ``havoc_ops``.
+needs by the VM's, havoc's and threefry's semantics, not what the
+kernel issues: see ``vm_ops`` and ``havoc_ops``.
 """
 
 from __future__ import annotations
@@ -50,7 +57,6 @@ import json
 import os
 import re
 import shutil
-import statistics
 import subprocess
 import sys
 import time
@@ -74,11 +80,15 @@ INT32_OPS_PER_S = 132 * 64 * 1.98e9
 # hash (xor with the location, then mix32: 3 shifts, 3 xors, 2
 # multiplies; 9).  A havoc edit decodes its eight words (10: op, two
 # positions, byte, value, endianness, block length, bit, delta, fill),
-# then loads and stores each byte it writes (2 per byte).
+# then loads and stores each byte it writes (2 per byte).  Each havoc
+# word, and each lane's key, is one threefry-2x32 hash (ops/prng.py):
+# the key schedule (2), the key injection (2), 20 rounds of add, rotate
+# and xor (60), 5 key injections of 3 adds (15), and the output xor (1).
 OPS_PER_VM_STEP = 10
 OPS_PER_BLOCK = 16
 OPS_PER_EDIT = 10
 OPS_PER_WRITTEN_BYTE = 2
+OPS_PER_HASH = 80
 SOURCE = "killerbeez_tpu_torch/csrc/vm_kernel.cu"
 REF = "killerbeez_tpu/ops/vm_kernel.py"
 
@@ -89,24 +99,6 @@ def card_line() -> str:
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True).stdout.strip()
     return out.splitlines()[0]
-
-
-def timed(fn, runs: int, warmup: int = 1) -> float:
-    """Median milliseconds of ``fn()`` over ``runs`` CUDA-event-timed
-    calls after ``warmup`` untimed ones."""
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(runs):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        fn()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end))
-    return statistics.median(times)
 
 
 def max_abs_err(a_fields, b_fields) -> int:
@@ -132,9 +124,10 @@ EDIT_BYTES = (1, 1, 2, 4, 1, 1, 2, 2, 4, 4, 1, None, None, None, None)
 
 
 def havoc_ops(words: torch.Tensor, stack_pow2: int, L: int):
-    """(edits, operations) the havoc prologue of lanes with these
-    words needs: each lane applies 1 << (1 + w0 % stack_pow2) edits,
-    edit i decoding words[8 (i + 1): 8 (i + 2)]."""
+    """(edits, hashes, operations) the havoc prologue of lanes with
+    these words needs: each lane hashes its key and its word 0, then
+    applies 1 << (1 + w0 % stack_pow2) edits, edit i hashing and
+    decoding words[8 (i + 1): 8 (i + 2)]."""
     w = words.to(torch.int64) & 0xFFFFFFFF
     b = w.shape[0]
     n_max = 1 << stack_pow2
@@ -145,7 +138,10 @@ def havoc_ops(words: torch.Tensor, stack_pow2: int, L: int):
                           dtype=torch.int64, device=w.device)
     edits = int(active.sum())
     written = int(torch.where(active, per_op[ops], 0).sum())
-    return edits, edits * OPS_PER_EDIT + written * OPS_PER_WRITTEN_BYTE
+    hashes = 2 * b + 8 * edits
+    return edits, hashes, (edits * OPS_PER_EDIT
+                           + written * OPS_PER_WRITTEN_BYTE
+                           + hashes * OPS_PER_HASH)
 
 
 def bound(bytes_moved: float, ops: float):
@@ -174,6 +170,54 @@ def run_cli(args, name):
     return log, out
 
 
+def launch_shape(vk, name) -> str:
+    c = vk.LAST_CONFIG[name]
+    return (f"{name}: {c['threads']} threads x {c['grid']} blocks, "
+            f"{c['smem_bytes']} B shared memory per block, "
+            f"{c['blocks_per_sm']} blocks per SM, lane state in "
+            f"{'shared' if c['lane_state_shared'] else 'device'} memory")
+
+
+def check_program(vk, name, dev, n, L, seed_len=None, n_edges=None):
+    """Both kernels against their plain versions on target ``name`` at
+    n lanes (max abs error over every output), the table path the
+    kernels took and whether each kernel kept its lanes' buffers and
+    counts rows in shared memory.  ``seed_len`` extends the target's
+    seed with bytes made from a seed; ``n_edges`` widens the counts
+    rows past the program's own edge count."""
+    from killerbeez_tpu_torch.models import targets_cgc
+    from killerbeez_tpu_torch.models.targets import get_target
+    from killerbeez_tpu_torch.ops import prng
+    prog = get_target(name)
+    sb = targets_cgc.VM_SEEDS[name][0]()
+    seed = torch.zeros(L, dtype=torch.uint8, device=dev)
+    seed[:len(sb)] = torch.tensor(list(sb), dtype=torch.uint8)
+    seed_len = seed_len or len(sb)
+    seed[len(sb):seed_len] = torch.randint(
+        0, 256, (seed_len - len(sb),), dtype=torch.uint8,
+        generator=torch.Generator().manual_seed(MUT_SEED)).to(dev)
+    ne = n_edges or prog.n_edges
+    instrs = torch.as_tensor(prog.instrs, device=dev)
+    table = torch.as_tensor(prog.edge_table, device=dev)
+    its = torch.arange(n, dtype=torch.int64, device=dev)
+    fargs = (instrs, table, seed, seed_len, prng.key(MUT_SEED, device=dev),
+             its, prog.mem_size, prog.max_steps, ne, STACK_POW2)
+    res, bufs, lens = vk.fuzz_batch(*fargs)
+    shared = [vk.LAST_CONFIG["kbz_fuzz_kernel"]["lane_state_shared"]]
+    ref, rbufs, rlens = vk.fuzz_batch_plain(*fargs)
+    err = max_abs_err(list(res) + [bufs, lens], list(ref) + [rbufs, rlens])
+    vargs = (instrs, table, bufs, lens, prog.mem_size, prog.max_steps, ne)
+    err = max(err, max_abs_err(vk.run_batch(*vargs),
+                               vk.run_batch_plain(*vargs)))
+    lanes, n_lanes = vk.compact_lanes(res.steps > prog.max_steps // 8)
+    err = max(err, max_abs_err(
+        vk.run_batch(*vargs, lanes=lanes, n_lanes=n_lanes),
+        vk.run_batch_plain(*vargs, lanes=lanes, n_lanes=n_lanes)))
+    shared.append(vk.LAST_CONFIG["kbz_vm_kernel"]["lane_state_shared"])
+    mode = vk.program_layout(instrs, table, ne, dev).table_mode
+    return err, mode, shared
+
+
 def findings(out: Path):
     return {d: sorted(os.listdir(out / d))
             for d in ("crashes", "hangs", "new_paths")}
@@ -188,6 +232,7 @@ def main() -> int:
     from killerbeez_tpu_torch.models.targets import get_target
     from killerbeez_tpu_torch.ops import _build, prng, vm_kernel as vk
     from killerbeez_tpu_torch.models.vm import _run_batch_impl
+    from killerbeez_tpu_torch.tools.timing import timed
 
     # -- phase 1: card, versions, build --------------------------------
     card = card_line()
@@ -202,9 +247,18 @@ def main() -> int:
           flush=True)
     log = _build.library_path("vm_kernel").with_suffix(".log")
     if log.exists():
+        # one line per kernel instance: its (mangled) name, registers
+        # and spills, from nvcc's -Xptxas=-v report
+        fn = spill = ""
         for line in log.read_text().splitlines():
-            if "registers" in line or "spill" in line:
-                print("ptxas:", line.strip(), flush=True)
+            m = re.search(r"Function properties for (\S+)", line)
+            if m:
+                fn = m.group(1)
+            elif "spill" in line:
+                spill = line.strip()
+            elif "registers" in line:
+                print(f"ptxas: {fn}: {line.split(':', 1)[1].strip()}; "
+                      f"{spill}", flush=True)
 
     # -- phase 2: kernels vs plain at the flagship shapes --------------
     dev = torch.device("cuda")
@@ -219,18 +273,18 @@ def main() -> int:
     instrs = torch.as_tensor(prog.instrs, device=dev)
     table = torch.as_tensor(prog.edge_table, device=dev)
     its = torch.arange(B, dtype=torch.int64, device=dev)
-    words = vk.havoc_words_for_keys(
-        prng.fold_in(prng.key(MUT_SEED, device=dev), its), STACK_POW2)
+    key = prng.key(MUT_SEED, device=dev)
     ms, steps_max, ne = prog.mem_size, prog.max_steps, prog.n_edges
     p1 = vk.auto_phase1_steps(steps_max)
-    common = (instrs, table, seed, len(seed_bytes), words, ms)
+    common = (instrs, table, seed, len(seed_bytes), key, its, ms)
 
     res1, bufs, lens = vk.fuzz_batch(*common, p1, ne, STACK_POW2)
     ref1, rbufs, rlens = vk.fuzz_batch_plain(*common, p1, ne, STACK_POW2)
     err_fuzz = max_abs_err(list(res1) + [bufs, lens],
                            list(ref1) + [rbufs, rlens])
     print(f"kbz_fuzz_kernel vs plain (7 outputs, B={B}, budget {p1}): "
-          f"max_abs_err {err_fuzz}", flush=True)
+          f"max_abs_err {err_fuzz}; {launch_shape(vk, 'kbz_fuzz_kernel')}",
+          flush=True)
     if err_fuzz:
         raise AssertionError("kbz_fuzz_kernel disagrees with its plain "
                              "version")
@@ -249,8 +303,8 @@ def main() -> int:
     err_part = max_abs_err(part, part_ref)
     n_surv = int(n_lanes)
     print(f"kbz_vm_kernel vs plain: no lane list max_abs_err {err_full}; "
-          f"lane list ({n_surv} survivors of {B}) max_abs_err {err_part}",
-          flush=True)
+          f"lane list ({n_surv} survivors of {B}) max_abs_err {err_part}; "
+          f"{launch_shape(vk, 'kbz_vm_kernel')}", flush=True)
     if err_full or err_part:
         raise AssertionError("kbz_vm_kernel disagrees with the plain VM")
 
@@ -262,6 +316,27 @@ def main() -> int:
     print(f"two-phase vs single phase: max_abs_err {err_2p}", flush=True)
     if err_2p:
         raise AssertionError("two-phase glue disagrees with one phase")
+    # the kernels' other table path: fixedform_vm's 343 x 342 edge table
+    # does not fit shared memory, so it is read from device memory
+    err_ff, mode_ff, _ = check_program(vk, "fixedform_vm", dev, 4096, 128)
+    print(f"fixedform_vm (4096 lanes, edge table mode {mode_ff}: "
+          f"{'device memory' if mode_ff == vk.TABLE_DEVICE else 'shared'}"
+          f"): both kernels vs plain max_abs_err {err_ff}", flush=True)
+    if err_ff or mode_ff != vk.TABLE_DEVICE:
+        raise AssertionError("the device-memory table path failed")
+    # the kernels' device-memory lane state: buffers of a 2 KB seed at
+    # ratio 2, and counts rows of 8000 edges, do not fit shared memory
+    for label, L_big, seed_len, n_edges in (
+            ("L = 4096, a 2048-byte seed", 4096, 2048, None),
+            ("8000 edges", 64, None, 8000)):
+        err_st, _, shared = check_program(vk, "tlvstack_vm", dev, 4096,
+                                          L_big, seed_len, n_edges)
+        print(f"tlvstack_vm ({label}, 4096 lanes, lane state in shared "
+              f"memory: fuzz {shared[0]}, vm {shared[1]}): both kernels "
+              f"vs plain max_abs_err {err_st}", flush=True)
+        if err_st or any(shared):
+            raise AssertionError(f"the device-memory lane state path "
+                                 f"failed ({label})")
 
     t_fuzz = timed(lambda: vk.fuzz_batch(*common, p1, ne, STACK_POW2), 7)
     t_fuzz_plain = timed(lambda: vk.fuzz_batch_plain(
@@ -286,24 +361,26 @@ def main() -> int:
           f"{t_vm_all_plain:.1f}); two-phase batch {t_2p:.3f}, single "
           f"phase {t_1p:.3f}", flush=True)
 
-    # bounds from this run's data
-    n_words = words.shape[1]
+    # bounds from this run's data (the words only count the edits)
+    words = vk.havoc_words_for_keys(prng.fold_in(key, its), STACK_POW2)
     table_bytes = instrs.numel() * 4 + table.numel() * 4
-    out_bytes = B * (5 * 4 + (ne + 1) + L)
-    edits, edit_ops = havoc_ops(words, STACK_POW2, L)
+    out_bytes = B * (4 * 4 + 8 + (ne + 1) + L)
+    edits, hashes, edit_ops = havoc_ops(words, STACK_POW2, L)
+    del words
     ops_fuzz, ops_vm, ops_all = vm_ops(res1) + edit_ops, vm_ops(part), \
         vm_ops(full)
-    b_fuzz, by_fuzz = bound(B * n_words * 4 + L + table_bytes + out_bytes,
+    b_fuzz, by_fuzz = bound(B * 8 + 16 + L + table_bytes + out_bytes,
                             ops_fuzz)
     list_bytes = (n_surv * (L + 4 + 4) + table_bytes
-                  + n_surv * (4 * 4 + (ne + 1)))
+                  + n_surv * (3 * 4 + 8 + (ne + 1)))
     b_vm, by_vm = bound(list_bytes, ops_vm)
     b_all, by_all = bound(B * (L + 4) + table_bytes
-                          + B * (4 * 4 + (ne + 1)), ops_all)
+                          + B * (3 * 4 + 8 + (ne + 1)), ops_all)
     print(f"bounds [ms]: fuzz {b_fuzz:.4f} ({by_fuzz}), vm lane list "
           f"{b_vm:.4f} ({by_vm}), vm all lanes {b_all:.4f} ({by_all}); "
           f"operations: fuzz {ops_fuzz} (havoc {edit_ops} over {edits} "
-          f"edits), vm lane list {ops_vm}, vm all lanes {ops_all}; "
+          f"edits and {hashes} threefry hashes), vm lane list {ops_vm}, "
+          f"vm all lanes {ops_all}; "
           f"executed VM steps: phase 1 {int(res1.steps.sum())}, phase 2 "
           f"{int(part.steps.sum())}", flush=True)
 
@@ -315,13 +392,10 @@ def main() -> int:
                        for a in make_static_maps(prog.edge_slot))
     virgin = torch.full((prog.map_size,), 0xFF, dtype=torch.uint8,
                         device=dev)
-    key = prng.key(MUT_SEED, device=dev)
     statuses = torch.where(two.status == 3, 1, two.status).to(torch.int32)
     tri = jh._triage_counts(two.counts, statuses, u_slots, seg_id, virgin,
                             virgin, virgin, False)
     stages = {
-        "words": timed(lambda: vk.havoc_words_for_keys(
-            prng.fold_in(key, its), STACK_POW2), 5),
         "phase1": t_fuzz,
         "phase2": timed(lambda: vk.run_batch(
             instrs, table, bufs, lens, ms, steps_max, ne,

@@ -33,7 +33,6 @@ import torch
 from .. import FUZZ_CRASH, FUZZ_HANG, FUZZ_NONE, FUZZ_RUNNING, \
     resolve_device
 from ..models import targets as targets_mod
-from ..ops import prng
 from ..ops.coverage import (
     classify_counts, count_non_255_bytes, merge_virgin, simplify_trace,
 )
@@ -42,7 +41,7 @@ from ..ops.static_triage import (
 )
 from ..ops.vm_kernel import (
     auto_phase1_steps, compact_lanes, fuzz_batch_2phase,
-    havoc_words_for_keys, run_batch as vm_run_batch,
+    run_batch as vm_run_batch,
 )
 from ..utils.logging import WARNING_MSG
 from ..utils.serialization import decode_array, encode_array
@@ -185,10 +184,8 @@ def _compact(statuses, new_paths, bufs, lens):
 def _fuzz_one(instrs, edge_table, u_slots, seg_id, seed_buf, seed_len,
               base_key, its, vb, vc, vh, mem_size, max_steps, n_edges,
               exact, stack_pow2, phase1_steps):
-    keys = prng.fold_in(base_key, its)
-    words = havoc_words_for_keys(keys, stack_pow2)
     res, bufs, lens = fuzz_batch_2phase(
-        instrs, edge_table, seed_buf, seed_len, words, mem_size,
+        instrs, edge_table, seed_buf, seed_len, base_key, its, mem_size,
         max_steps, n_edges, stack_pow2=stack_pow2,
         phase1_steps=phase1_steps)
     return _judge(res, u_slots, seg_id, vb, vc, vh, exact) + (bufs, lens)
@@ -199,8 +196,8 @@ def _fused_fuzz_step(instrs, edge_table, u_slots, seg_id, seed_buf,
                      max_steps, n_edges, exact, stack_pow2,
                      phase1_steps=0):
     """The flagship product path: per-lane keys fold_in(base_key,
-    its), havoc words, havoc mutation AND VM execution in one kernel
-    (two-phase), static-edge triage, and the in-step compaction —
+    its), their havoc words, havoc mutation AND VM execution in one
+    kernel (two-phase), static-edge triage, and the in-step compaction —
     candidates are born, run and judged on the device.  ``its`` is an
     int64 tensor of uint32 iteration numbers on the device."""
     out = _fuzz_one(instrs, edge_table, u_slots, seg_id, seed_buf,

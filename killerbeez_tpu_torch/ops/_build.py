@@ -28,14 +28,26 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3",
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
-# argument types of each source's extern "C" launch functions
+_CFG = ctypes.POINTER(ctypes.c_int)
+# argument types of each source's extern "C" functions
 SIGNATURES = {
     "vm_kernel": {
-        "kbz_fuzz_launch": (_P, _I, _P, _I, _P, _I, _I, _P, _I, _I, _I,
-                            _I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P,
-                            _P, _P),
-        "kbz_vm_launch": (_P, _I, _P, _I, _P, _I, _P, _P, _P, _I, _I, _I,
-                          _I, _P, _P, _P, _P, _P, _P, _P),
+        # fuzz, ni, instrs_shared, nb, table_mode, n_edges, L
+        "kbz_state_rows": (_I, _I, _I, _I, _I, _I, _I),
+        # instrs, ni, instrs_shared, table, nb, table_mode, state_shared,
+        # seed, L, seed_len, base_key, its, stack_pow2, B, mem_size,
+        # max_steps, n_edges, scratch, cols, status, exit_code, counts,
+        # steps, hash, bufs, lens, stream, cfg
+        "kbz_fuzz_launch": (_P, _I, _I, _P, _I, _I, _I, _P, _I, _I, _P,
+                            _P, _I, _I, _I, _I, _I, _P, _I, _P, _P, _P,
+                            _P, _P, _P, _P, _P, _CFG),
+        # instrs, ni, instrs_shared, table, nb, table_mode, state_shared,
+        # inputs, L, lengths, lanes, n_lanes, n_threads, mem_size,
+        # max_steps, n_edges, scratch, cols, status, exit_code, counts,
+        # steps, hash, stream, cfg
+        "kbz_vm_launch": (_P, _I, _I, _P, _I, _I, _I, _P, _I, _P, _P, _P,
+                          _I, _I, _I, _I, _P, _I, _P, _P, _P, _P, _P, _P,
+                          _CFG),
     },
 }
 
@@ -57,9 +69,16 @@ def nvcc() -> str:
                        "toolkit (set CUDA_HOME or put nvcc on PATH)")
 
 
+def sources(name: str):
+    """The files a build of ``csrc/<name>.cu`` reads: the source and
+    every header of ``csrc/``."""
+    return [CSRC / f"{name}.cu", *sorted(CSRC.glob("*.cuh"))]
+
+
 def library_path(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode())
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for path in sources(name):
+        digest.update(path.name.encode() + b"\0" + path.read_bytes())
     return BUILD_DIR / f"lib{name}_{digest.hexdigest()[:16]}.so"
 
 
@@ -88,7 +107,7 @@ def build(name: str) -> Path:
 
 def load(name: str) -> ctypes.CDLL:
     """The loaded library of ``csrc/<name>.cu``, built on first use,
-    with every launch function's argument types declared."""
+    with every function's argument types declared."""
     with _lock:
         lib = _libs.get(name)
         if lib is None:

@@ -4,8 +4,8 @@ Port of the JAX package's ``ops/vm_kernel.py``, whose Pallas kernels
 become CUDA C++ kernels for Hopper (``csrc/vm_kernel.cu``):
 
   * ``fuzz_batch``  -> ``kbz_fuzz_kernel`` (replaces ``_fuzz_kernel``,
-    ``fuzz_batch_pallas``): havoc mutation AND VM execution in one
-    kernel, one thread per lane;
+    ``fuzz_batch_pallas``): per-lane havoc words, havoc mutation AND
+    VM execution in one kernel, one thread per lane;
   * ``run_batch``   -> ``kbz_vm_kernel`` (replaces ``_vm_kernel_skip``
     and ``_vm_kernel``, ``run_batch_pallas``): the VM over given
     inputs, optionally over a list of lanes only.
@@ -14,17 +14,21 @@ Each wrapper takes its plain PyTorch version for tensors on the CPU,
 and only then; for CUDA tensors it launches the kernel or raises.
 ``LAUNCHES`` counts the kernel launches of each wrapper.
 
-Layouts are lane-major: inputs u8[B, L], havoc words int32[B, W]
-(uint32 bits), counts u8[B, E+1]; the path hash comes back as int64
-holding the uint32.  The TPU-only devices of the reference (one-hot
-MXU gathers, lane-tile padding, int16 count narrowing) are not
-semantics and have no counterpart here: results for a lane do not
-depend on the batch around it.
+Layouts are lane-major: inputs u8[B, L], counts u8[B, E+1]; the
+path hash comes back as int64 holding the uint32.  The fused kernel
+takes the mutator's base key (int64[2]) and the lanes' iteration
+numbers (int64[B], uint32 values) and draws each lane's havoc words
+itself, bit-identical to ``havoc_words_for_keys(fold_in(base_key,
+its))``.  The TPU-only devices of the reference (one-hot MXU gathers,
+lane-tile padding, int16 count narrowing) are not semantics and have
+no counterpart here: results for a lane do not depend on the batch
+around it.
 """
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+import ctypes
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
@@ -38,11 +42,19 @@ M32 = 0xFFFFFFFF
 #: kernel launches made by the wrappers (plain-version calls on CPU
 #: tensors do not count)
 LAUNCHES = {"kbz_fuzz_kernel": 0, "kbz_vm_kernel": 0}
+#: each kernel's last launch: block size, grid, shared memory bytes
+#: per block, resident blocks per SM and whether the lanes' buffers
+#: and counts rows were in shared memory
+LAST_CONFIG = {"kbz_fuzz_kernel": None, "kbz_vm_kernel": None}
+#: the most shared memory a block gives each program table (the
+#: instructions, the edge table); a larger one is read from device
+#: memory
+TABLE_SMEM_MAX = 64 * 1024
 
-
-def _i32_bits(x: torch.Tensor) -> torch.Tensor:
-    """int64 holding uint32 -> int32 with the same bits."""
-    return (((x & M32) ^ (1 << 31)) - (1 << 31)).to(torch.int32)
+# csrc/vm_kernel.cu's table modes
+TABLE_DEVICE, TABLE_U8, TABLE_U16 = 0, 1, 2
+_CONFIG_FIELDS = ("threads", "grid", "smem_bytes", "blocks_per_sm",
+                  "lane_state_shared")
 
 
 def _check(cond: bool, msg: str) -> None:
@@ -55,14 +67,67 @@ def _launch_check(rc: int, name: str) -> None:
         raise RuntimeError(f"{name} launch failed: CUDA error {rc}")
 
 
-def _tables(instrs, edge_table, dev):
+def _i32_bits(x: torch.Tensor) -> torch.Tensor:
+    """int64 holding uint32 -> int32 with the same bits."""
+    return (((x & M32) ^ (1 << 31)) - (1 << 31)).to(torch.int32)
+
+
+class Layout(NamedTuple):
+    """How the kernels read a program: its tables as the kernel takes
+    them and whether each is staged in shared memory."""
+    instrs: torch.Tensor        # int32[NI, 4]
+    instrs_shared: bool
+    table: torch.Tensor         # u8 / int16 (u16 bits) / int32 [nb+1, nb]
+    table_mode: int             # TABLE_U8, TABLE_U16 or TABLE_DEVICE
+
+
+def program_layout(instrs, edge_table, n_edges, dev) -> Layout:
+    """The program's tables for the kernels: the edge table narrowed to
+    u8 (n_edges < 256) or u16 and staged in shared memory when it fits
+    ``TABLE_SMEM_MAX``, else int32 read from device memory; the
+    instructions staged when they fit."""
     instrs = instrs.to(device=dev, dtype=torch.int32).contiguous()
     table = edge_table.to(device=dev, dtype=torch.int32).contiguous()
     _check(instrs.dim() == 2 and instrs.shape[1] == 4 and
            instrs.shape[0] > 0, "instrs must be int32[NI, 4], NI > 0")
     _check(table.dim() == 2 and table.shape[0] == table.shape[1] + 1,
            "edge_table must be int32[nb + 1, nb]")
-    return instrs, table
+    cells = table.numel()
+    if n_edges < 256 and cells <= TABLE_SMEM_MAX:
+        table, mode = table.to(torch.uint8), TABLE_U8
+    elif n_edges < 32768 and 2 * cells <= TABLE_SMEM_MAX:
+        table, mode = table.to(torch.int16), TABLE_U16
+    else:
+        mode = TABLE_DEVICE
+    return Layout(instrs, instrs.numel() * 4 <= TABLE_SMEM_MAX, table, mode)
+
+
+def _scratch(lib, lay: Layout, fuzz: bool, mem_size, n_edges, L, n, dev):
+    """The kernel's device scratch for n lanes: int32[mem_size + state
+    rows, cols], the VM's scratch cells and, when the lanes' buffers do
+    not fit the block's shared memory (``kbz_state_rows``), the
+    buffers.  Returns (scratch, cols, lane state in shared memory)."""
+    state_rows = lib.kbz_state_rows(
+        int(fuzz), lay.instrs.shape[0], int(lay.instrs_shared),
+        lay.table.shape[1], lay.table_mode, n_edges, L)
+    cols = (n + 255) // 256 * 256
+    rows = max(mem_size + state_rows, 1)
+    _check(rows * cols < 2 ** 31, "the batch's scratch exceeds 2**31 "
+           "words: use fewer lanes or a shorter input")
+    return (torch.empty((rows, cols), dtype=torch.int32, device=dev), cols,
+            state_rows == 0)
+
+
+_CFG = {name: (ctypes.c_int * len(_CONFIG_FIELDS))() for name in LAST_CONFIG}
+
+
+def _record_launch(name: str) -> None:
+    LAST_CONFIG[name] = dict(zip(_CONFIG_FIELDS, _CFG[name]))
+    LAUNCHES[name] += 1
+
+
+def _ptr(t: Optional[torch.Tensor]):
+    return None if t is None else t.data_ptr()
 
 
 # --------------------------------------------------------------------
@@ -82,13 +147,17 @@ def compact_lanes(mask: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     return out[:b], mask.sum().to(torch.int32)
 
 
-def _empty_result(b, n_edges, dev):
+def _result(b, n_edges, dev, zero: bool) -> VMResult:
+    """Output tensors for a batch of b lanes: zeroed (status FUZZ_NONE)
+    where a kernel leaves lanes unwritten or counts into the output
+    rows, else left for the kernel to write every row."""
+    new = torch.zeros if zero else torch.empty     # FUZZ_NONE is 0
     return VMResult(
-        status=torch.full((b,), FUZZ_NONE, dtype=torch.int32, device=dev),
-        exit_code=torch.zeros(b, dtype=torch.int32, device=dev),
-        counts=torch.zeros((b, n_edges + 1), dtype=torch.uint8, device=dev),
-        steps=torch.zeros(b, dtype=torch.int32, device=dev),
-        path_hash=torch.zeros(b, dtype=torch.int64, device=dev))
+        status=new(b, dtype=torch.int32, device=dev),
+        exit_code=new(b, dtype=torch.int32, device=dev),
+        counts=new((b, n_edges + 1), dtype=torch.uint8, device=dev),
+        steps=new(b, dtype=torch.int32, device=dev),
+        path_hash=new(b, dtype=torch.int64, device=dev))
 
 
 def run_batch_plain(instrs, edge_table, inputs, lengths, mem_size,
@@ -104,7 +173,7 @@ def run_batch_plain(instrs, edge_table, inputs, lengths, mem_size,
     idx = lanes[:int(n_lanes)].long()
     sub = _run_batch_impl(instrs, edge_table, inputs[idx], lengths[idx],
                           mem_size, max_steps, n_edges)
-    out = _empty_result(inputs.shape[0], n_edges, inputs.device)
+    out = _result(inputs.shape[0], n_edges, inputs.device, zero=True)
     for full, part in zip(out, sub):
         full[idx] = part
     return out
@@ -130,34 +199,38 @@ def run_batch(instrs, edge_table, inputs, lengths, mem_size, max_steps,
     _check((lanes is None) == (n_lanes is None),
            "lanes and n_lanes go together")
     b, L = inputs.shape
-    instrs, table = _tables(instrs, edge_table, dev)
+    lay = program_layout(instrs, edge_table, n_edges, dev)
     inputs = inputs.contiguous()
     lengths = lengths.to(device=dev, dtype=torch.int32).contiguous()
     _check(lengths.shape == (b,), "lengths must be int32[B]")
     n_threads = b
-    lanes_p = n_lanes_p = None
     if lanes is not None:
         lanes = lanes.to(device=dev, dtype=torch.int32).contiguous()
         n_lanes = n_lanes.to(device=dev, dtype=torch.int32).reshape(1)
         n_threads = int(lanes.shape[0])
         _check(n_threads <= b, "more lanes than the batch holds")
-        lanes_p, n_lanes_p = lanes.data_ptr(), n_lanes.data_ptr()
-    out = _empty_result(b, n_edges, dev)
-    hash32 = torch.zeros(b, dtype=torch.int32, device=dev)
-    mem = torch.empty((max(mem_size, 1), max(n_threads, 1)),
-                      dtype=torch.int32, device=dev)
     from ._build import load
     lib = load("vm_kernel")
+    scratch, cols, state_shared = _scratch(lib, lay, False, mem_size,
+                                           n_edges, L, n_threads, dev)
+    # without a list the kernel writes every row; with one, only the
+    # listed lanes' rows, so the rest start zeroed, as do counts rows
+    # the kernel counts into directly
+    out = _result(b, n_edges, dev,
+                  zero=lanes is not None or not state_shared)
     rc = lib.kbz_vm_launch(
-        instrs.data_ptr(), instrs.shape[0], table.data_ptr(),
-        table.shape[1], inputs.data_ptr(), L, lengths.data_ptr(),
-        lanes_p, n_lanes_p, n_threads, mem_size, max_steps, n_edges,
-        mem.data_ptr(), out.status.data_ptr(), out.exit_code.data_ptr(),
-        out.counts.data_ptr(), out.steps.data_ptr(), hash32.data_ptr(),
-        torch.cuda.current_stream(dev).cuda_stream)
+        lay.instrs.data_ptr(), lay.instrs.shape[0], int(lay.instrs_shared),
+        lay.table.data_ptr(), lay.table.shape[1], lay.table_mode,
+        int(state_shared), inputs.data_ptr(), L, lengths.data_ptr(),
+        _ptr(lanes), _ptr(n_lanes), n_threads, mem_size, max_steps,
+        n_edges, scratch.data_ptr(), cols, out.status.data_ptr(),
+        out.exit_code.data_ptr(),
+        out.counts.data_ptr(), out.steps.data_ptr(),
+        out.path_hash.data_ptr(), torch.cuda.current_stream(dev).cuda_stream,
+        _CFG["kbz_vm_kernel"])
     _launch_check(rc, "kbz_vm_kernel")
-    LAUNCHES["kbz_vm_kernel"] += 1
-    return out._replace(path_hash=hash32.to(torch.int64) & M32)
+    _record_launch("kbz_vm_kernel")
+    return out
 
 
 # --------------------------------------------------------------------
@@ -169,74 +242,75 @@ def havoc_words_for_keys(keys: torch.Tensor, stack_pow2: int = 4
     """The per-lane havoc words, one row per key (int64 [B, 2] raw
     keys): exactly ``havoc_at``'s stream in the JAX package, one
     ``bits(key, (2**stack_pow2 + 1, 8))`` draw per lane.  Returns
-    int32[B, (2**stack_pow2 + 1) * 8] holding the uint32 bits."""
+    int32[B, (2**stack_pow2 + 1) * 8] holding the uint32 bits.  The
+    unfused havoc mutator and ``fuzz_batch_plain`` draw their words
+    here; ``kbz_fuzz_kernel`` computes the same words itself."""
     n_words = ((1 << stack_pow2) + 1) * 8
     return _i32_bits(prng.bits(keys, n_words))
 
 
-def havoc_words(key: torch.Tensor, b: int, stack_pow2: int = 4
-                ) -> torch.Tensor:
-    """havoc_words_for_keys over fold_in(key, 0..b-1)."""
-    its = torch.arange(b, dtype=torch.int64, device=key.device)
-    return havoc_words_for_keys(prng.fold_in(key, its), stack_pow2)
-
-
-def fuzz_batch_plain(instrs, edge_table, seed_buf, seed_len, words,
-                     mem_size, max_steps, n_edges, stack_pow2=4):
-    """The plain PyTorch version of ``kbz_fuzz_kernel``: ``havoc_at``
-    then the torch VM."""
+def fuzz_batch_plain(instrs, edge_table, seed_buf, seed_len, base_key,
+                     its, mem_size, max_steps, n_edges, stack_pow2=4):
+    """The plain PyTorch version of ``kbz_fuzz_kernel``: per-lane keys
+    ``fold_in(base_key, its)``, their havoc words, ``havoc_at``, then
+    the torch VM."""
+    words = havoc_words_for_keys(prng.fold_in(base_key, its), stack_pow2)
     bufs, lens = havoc_at(seed_buf, seed_len, words, stack_pow2)
     res = _run_batch_impl(instrs, edge_table, bufs, lens, mem_size,
                           max_steps, n_edges)
     return res, bufs, lens
 
 
-def fuzz_batch(instrs, edge_table, seed_buf, seed_len, words, mem_size,
-               max_steps, n_edges, stack_pow2=4):
-    """Fused fuzz step (``kbz_fuzz_kernel``): every lane starts from
-    the seed, applies its stacked havoc edits drawn from its row of
-    ``words`` (from havoc_words), and runs the mutant through the VM.
-    ``seed_buf`` uint8[L].  Returns (VMResult, bufs uint8[B, L], lens
-    int32[B]).  CPU tensors take the plain version; CUDA the kernel."""
-    dev = words.device
-    n_words = ((1 << stack_pow2) + 1) * 8
-    _check(words.dim() == 2 and words.shape[1] == n_words,
-           f"words must be [B, {n_words}] for stack_pow2={stack_pow2} "
-           "(generate with havoc_words)")
+def fuzz_batch(instrs, edge_table, seed_buf, seed_len, base_key, its,
+               mem_size, max_steps, n_edges, stack_pow2=4):
+    """Fused fuzz step (``kbz_fuzz_kernel``): lane i starts from the
+    seed, applies the stacked havoc edits drawn from its key
+    ``fold_in(base_key, its[i])`` and runs the mutant through the VM.
+    ``seed_buf`` uint8[L], ``base_key`` int64[2] raw key, ``its``
+    int64[B] uint32 iteration numbers.  Returns (VMResult, bufs
+    uint8[B, L], lens int32[B]).  CPU tensors take the plain version;
+    CUDA the kernel."""
+    dev = its.device
+    _check(its.dim() == 1 and its.dtype == torch.int64,
+           "its must be int64[B]")
+    _check(base_key.shape == (2,) and base_key.dtype == torch.int64 and
+           base_key.device == dev,
+           "base_key must be an int64[2] raw key on its' device")
     _check(1 <= stack_pow2 <= 7, "stack_pow2 must be in 1..7")
     if dev.type == "cpu":
         return fuzz_batch_plain(instrs, edge_table, seed_buf, seed_len,
-                                words, mem_size, max_steps, n_edges,
-                                stack_pow2)
+                                base_key, its, mem_size, max_steps,
+                                n_edges, stack_pow2)
     _check(dev.type == "cuda", f"fuzz_batch: unsupported device {dev}")
-    b = words.shape[0]
+    b = its.shape[0]
     seed = seed_buf.to(device=dev, dtype=torch.uint8).contiguous()
     L = int(seed.shape[0])
     _check(seed.dim() == 1 and L > 0, "seed_buf must be uint8[L]")
     seed_len = int(seed_len)
     _check(1 <= seed_len <= L, "seed_len must be in 1..L")
-    instrs, table = _tables(instrs, edge_table, dev)
-    words = words.to(torch.int32).contiguous()
-    res = _empty_result(b, n_edges, dev)
-    hash32 = torch.zeros(b, dtype=torch.int32, device=dev)
-    bufs = torch.empty((b, L), dtype=torch.uint8, device=dev)
-    lens = torch.empty(b, dtype=torch.int32, device=dev)
-    scratch = torch.empty((b, L), dtype=torch.uint8, device=dev)
-    mem = torch.empty((max(mem_size, 1), max(b, 1)), dtype=torch.int32,
-                      device=dev)
+    lay = program_layout(instrs, edge_table, n_edges, dev)
+    its = its.contiguous()
+    base_key = base_key.contiguous()
     from ._build import load
     lib = load("vm_kernel")
+    scratch, cols, state_shared = _scratch(lib, lay, True, mem_size,
+                                           n_edges, L, b, dev)
+    res = _result(b, n_edges, dev, zero=not state_shared)
+    bufs = torch.empty((b, L), dtype=torch.uint8, device=dev)
+    lens = torch.empty(b, dtype=torch.int32, device=dev)
     rc = lib.kbz_fuzz_launch(
-        instrs.data_ptr(), instrs.shape[0], table.data_ptr(),
-        table.shape[1], seed.data_ptr(), L, seed_len, words.data_ptr(),
-        n_words, stack_pow2, b, mem_size, max_steps, n_edges,
-        scratch.data_ptr(), mem.data_ptr(), res.status.data_ptr(),
-        res.exit_code.data_ptr(), res.counts.data_ptr(),
-        res.steps.data_ptr(), hash32.data_ptr(), bufs.data_ptr(),
-        lens.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
+        lay.instrs.data_ptr(), lay.instrs.shape[0], int(lay.instrs_shared),
+        lay.table.data_ptr(), lay.table.shape[1], lay.table_mode,
+        int(state_shared), seed.data_ptr(), L, seed_len,
+        base_key.data_ptr(), its.data_ptr(), stack_pow2, b, mem_size,
+        max_steps, n_edges, scratch.data_ptr(), cols,
+        res.status.data_ptr(), res.exit_code.data_ptr(),
+        res.counts.data_ptr(), res.steps.data_ptr(),
+        res.path_hash.data_ptr(), bufs.data_ptr(), lens.data_ptr(),
+        torch.cuda.current_stream(dev).cuda_stream, _CFG["kbz_fuzz_kernel"])
     _launch_check(rc, "kbz_fuzz_kernel")
-    LAUNCHES["kbz_fuzz_kernel"] += 1
-    return res._replace(path_hash=hash32.to(torch.int64) & M32), bufs, lens
+    _record_launch("kbz_fuzz_kernel")
+    return res, bufs, lens
 
 
 # --------------------------------------------------------------------
@@ -256,15 +330,15 @@ def auto_phase1_steps(max_steps: int) -> int:
     return max_steps // 8 if max_steps >= 256 else 0
 
 
-def fuzz_batch_2phase(instrs, edge_table, seed_buf, seed_len, words,
-                      mem_size, max_steps, n_edges, stack_pow2=4,
+def fuzz_batch_2phase(instrs, edge_table, seed_buf, seed_len, base_key,
+                      its, mem_size, max_steps, n_edges, stack_pow2=4,
                       phase1_steps=0):
     """fuzz_batch with two-phase tail scheduling.  ``phase1_steps``:
     <0 = auto (auto_phase1_steps); 0 or >= max_steps = single phase."""
     if phase1_steps < 0:
         phase1_steps = auto_phase1_steps(max_steps)
     res1, bufs, lens = fuzz_batch(
-        instrs, edge_table, seed_buf, seed_len, words, mem_size,
+        instrs, edge_table, seed_buf, seed_len, base_key, its, mem_size,
         min(phase1_steps, max_steps) if phase1_steps else max_steps,
         n_edges, stack_pow2=stack_pow2)
     if not phase1_steps or phase1_steps >= max_steps:

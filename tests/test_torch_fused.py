@@ -57,10 +57,10 @@ def test_fused_step_matches_havoc_then_vm(name):
     ref = jax_run(jnp.asarray(prog.instrs), jnp.asarray(prog.edge_table),
                   bufs_r, lens_r, prog.mem_size, prog.max_steps,
                   prog.n_edges, False)
-    words = vm_kernel.havoc_words(prng.key(3), B, sp)
     res, bufs, lens = vm_kernel.fuzz_batch(
-        *_tables(prog), torch.from_numpy(seed_buf), seed_len, words,
-        prog.mem_size, prog.max_steps, prog.n_edges, stack_pow2=sp)
+        *_tables(prog), torch.from_numpy(seed_buf), seed_len, prng.key(3),
+        torch.from_numpy(its), prog.mem_size, prog.max_steps, prog.n_edges,
+        stack_pow2=sp)
     np.testing.assert_array_equal(np.asarray(bufs_r), bufs.numpy())
     np.testing.assert_array_equal(np.asarray(lens_r), lens.numpy())
     for f in FIELDS:
@@ -74,9 +74,9 @@ def test_two_phase_equals_single_phase(phase1):
     prog = targets.get_target("tlvstack_vm")
     seed_buf, seed_len = _seed("tlvstack_vm", 64)
     B = 256
-    words = vm_kernel.havoc_words(prng.key(5), B, 4)
-    args = (*_tables(prog), torch.from_numpy(seed_buf), seed_len, words,
-            prog.mem_size, prog.max_steps, prog.n_edges)
+    its = torch.arange(B, dtype=torch.int64)
+    args = (*_tables(prog), torch.from_numpy(seed_buf), seed_len,
+            prng.key(5), its, prog.mem_size, prog.max_steps, prog.n_edges)
     one, b1, l1 = vm_kernel.fuzz_batch(*args, stack_pow2=4)
     two, b2, l2 = vm_kernel.fuzz_batch_2phase(*args, stack_pow2=4,
                                               phase1_steps=phase1)
@@ -86,6 +86,42 @@ def test_two_phase_equals_single_phase(phase1):
     assert torch.equal(b1, b2) and torch.equal(l1, l2)
     for a, b in zip(one, two):
         assert torch.equal(a, b)
+
+
+def test_fused_step_draws_no_havoc_words(monkeypatch):
+    """The fused path hands the base key and the iteration numbers to
+    the fused kernel's wrapper, which draws each lane's words itself:
+    the instrumentation draws none (no [B, 136] words tensor)."""
+    prog = targets.get_target("tlvstack_vm")
+    seed_buf, seed_len = _seed("tlvstack_vm", 64)
+    u_slots, seg_id = make_static_maps(prog.edge_slot)
+    vb = torch.full((prog.map_size,), 0xFF, dtype=torch.uint8)
+    calls = []
+    wrapped = jit_harness.fuzz_batch_2phase
+
+    def spy(*args, **kwargs):
+        calls.append(args)
+        return wrapped(*args, **kwargs)
+
+    def boom(*_a, **_k):
+        raise AssertionError("the fused path drew havoc words")
+
+    monkeypatch.setattr(jit_harness, "havoc_words_for_keys", boom,
+                        raising=False)
+    monkeypatch.setattr(jit_harness, "fuzz_batch_2phase", spy)
+    key = prng.key(3)
+    its0 = torch.arange(40, 72, dtype=torch.int64)
+    jit_harness._fused_fuzz_multi(
+        *_tables(prog), torch.from_numpy(u_slots), torch.from_numpy(seg_id),
+        torch.from_numpy(seed_buf), seed_len, key, its0, vb, vb.clone(),
+        vb.clone(), prog.mem_size, prog.max_steps, prog.n_edges, False, 4,
+        2, phase1_steps=-1)
+    assert len(calls) == 2
+    for j, args in enumerate(calls):
+        assert args[4] is key
+        assert torch.equal(args[5], its0 + j * 32)
+        assert not any(torch.is_tensor(a) and a.dim() == 2 and
+                       a.shape[1] == 136 for a in args)
 
 
 def _compact_ref(statuses, new_paths, bufs, lens, cap):
