@@ -26,16 +26,27 @@ It builds the CUDA kernels from ``killerbeez_tpu_torch/csrc`` and:
      warm-up), and prints each kernel's launch shape (block size, grid,
      shared memory per block, resident blocks per SM);
   3. drives the main path: the port's CLI in a subprocess, ``file
-     jit_harness havoc -b 65536 -n 1572864 -fb 0`` with engine
-     cuda_fused (three superbatches of 8 x 65536 lanes); requires exit
-     0, launch counts > 0 for both kernels (the CLI prints them; the
-     subprocess starts from zero) and findings in new_paths/, and
-     prints execs/s beside the card's name and power limit;
+     jit_harness havoc -b 65536 -n 6291456`` with engine cuda_fused
+     (twelve superbatches of 8 x 65536 lanes) and no ``-fb`` flag, the
+     default campaign: corpus feedback every 8 batches with the bandit
+     scheduler, stats files and the event log; requires exit 0, launch
+     counts > 0 for both kernels (the CLI prints them; the subprocess
+     starts from zero), findings in new_paths/, ``fuzzer_stats`` and a
+     ``scheduler_pick`` event onto an admitted arm, not the base seed;
+     runs it and the same command at ``-fb 0`` in turns (default,
+     ``-fb 0``, ``-fb 0``, default) and prints the four execs/s beside
+     the card's name and power limit;
   4. runs the CLI on the card (cuda_fused) and on the CPU (torch) at
      ``-b 1024 -n 12288 -fb 0`` — one K = 8 superbatch, then four
      single batches — once with throughput novelty (the flagship's)
      and once with exact novelty, and requires equal md5 sets and
-     equal instrumentation state dumps;
+     equal instrumentation state dumps; then, in this process through
+     the CLI's ``main`` with ``Fuzzer.PIPELINE_DEPTH = 1`` (every
+     batch triaged before the next rotation, so the rotations are
+     fixed), at the default ``-fb`` with ``-b 1024 -n 25600`` (its
+     third rotation picks an admitted arm), under both novelties, and
+     requires equal md5 sets, ``-isd`` and ``-msd`` states, rotation
+     picks and ``fuzzer_stats`` counters;
   5. prints one ``{"kernels": [...]}`` line, then the card line, then
      the result line ``{"ok": true, "device": {...}}`` last.
 
@@ -68,6 +79,10 @@ ROOT = Path(__file__).resolve().parent
 OUT = ROOT / "build" / "chip_smoke"
 B = 65536
 STACK_POW2 = 4
+#: the main path's run length: 12 superbatches of 8 batches, so the
+#: default campaign rotates 11 times; its first rotations pick the base
+#: seed while the base still finds edges, later ones admitted arms
+FLAGSHIP_BATCHES = 96
 MUT_SEED = 3
 HBM_BYTES_PER_S = 3.35e12
 INT32_OPS_PER_S = 132 * 64 * 1.98e9
@@ -150,14 +165,19 @@ def bound(bytes_moved: float, ops: float):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+def cli_argv(out, *args):
+    return ["file", "jit_harness", "havoc", "-sf", str(OUT / "seed.bin"),
+            "-m", json.dumps({"seed": MUT_SEED}), "-o", str(out), "-l",
+            '{"level": 1}', *args]
+
+
 def run_cli(args, name):
-    """Run the port's CLI; returns (stderr text, output dir)."""
+    """Run the port's CLI in a subprocess; returns (stderr text, output
+    dir)."""
     out = OUT / name
     shutil.rmtree(out, ignore_errors=True)
-    cmd = [sys.executable, "-m", "killerbeez_tpu_torch.fuzzer", "file",
-           "jit_harness", "havoc", "-sf", str(OUT / "seed.bin"), "-fb",
-           "0", "-m", json.dumps({"seed": MUT_SEED}), "-o", str(out),
-           "-l", '{"level": 1}', *args]
+    cmd = [sys.executable, "-m", "killerbeez_tpu_torch.fuzzer",
+           *cli_argv(out, *args)]
     t0 = time.perf_counter()
     proc = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True)
     wall = time.perf_counter() - t0
@@ -221,6 +241,78 @@ def check_program(vk, name, dev, n, L, seed_len=None, n_edges=None):
 def findings(out: Path):
     return {d: sorted(os.listdir(out / d))
             for d in ("crashes", "hangs", "new_paths")}
+
+
+def events(out: Path):
+    with open(out / "events.jsonl") as f:
+        return [json.loads(line) for line in f]
+
+
+def picks(out: Path):
+    return [(e["arm"], e["rotation"]) for e in events(out)
+            if e["type"] == "scheduler_pick"]
+
+
+def stats_counters(out: Path):
+    keep = ("execs_done", "paths_total", "unique_crashes", "unique_hangs")
+    rows = dict(line.split(":", 1) for line in
+                (out / "fuzzer_stats").read_text().splitlines())
+    return {k.strip(): v.strip() for k, v in rows.items()
+            if k.strip() in keep}
+
+
+def flagship(name, *args):
+    """The main path's CLI run; returns (launches, execs/s, output
+    dir)."""
+    n_iter = FLAGSHIP_BATCHES * B
+    log, out = run_cli(
+        ["-b", str(B), "-n", str(n_iter), "-i",
+         json.dumps({"target": "tlvstack_vm", "engine": "cuda_fused",
+                     "novelty": "throughput"}), *args], name)
+    m = re.search(r"kernel launches: (\{.*\})", log)
+    if not m:
+        raise AssertionError("the CLI printed no kernel launch counts")
+    launches = json.loads(m.group(1))
+    if min(launches.values()) <= 0:
+        raise AssertionError(f"a kernel never launched on the main path "
+                             f"({name}): {launches}")
+    eps = re.search(r"Ran (\d+) iterations in ([0-9.]+) seconds "
+                    r"\(([0-9.]+) execs/s lifetime", log)
+    if not eps or int(eps.group(1)) != n_iter:
+        raise AssertionError(f"the CLI did not run every iteration "
+                             f"({name})")
+    found = findings(out)
+    if not found["new_paths"]:
+        raise AssertionError(f"the flagship run found no new paths "
+                             f"({name})")
+    per_batch = float(eps.group(2)) / (n_iter // B) * 1e3
+    print(f"main path ({name}): {n_iter} execs in {eps.group(2)} s = "
+          f"{eps.group(3)} execs/s ({per_batch:.1f} ms per batch); "
+          f"launches {launches}; findings: {len(found['crashes'])} "
+          f"crashes, {len(found['hangs'])} hangs, "
+          f"{len(found['new_paths'])} new paths", flush=True)
+    return launches, float(eps.group(3)), out
+
+
+def inprocess(out: Path, *args):
+    """The port's CLI in this process with PIPELINE_DEPTH = 1; returns
+    what the card and the CPU must agree on."""
+    from killerbeez_tpu_torch.fuzzer.cli import main as cli_main
+    from killerbeez_tpu_torch.fuzzer.loop import Fuzzer
+    shutil.rmtree(out, ignore_errors=True)
+    depth = Fuzzer.PIPELINE_DEPTH
+    Fuzzer.PIPELINE_DEPTH = 1
+    try:
+        rc = cli_main(cli_argv(out, "-isd", f"{out}.isd", "-msd",
+                               f"{out}.msd", *args))
+    finally:
+        Fuzzer.PIPELINE_DEPTH = depth
+    if rc != 0:
+        raise RuntimeError(f"in-process CLI {out.name} exited {rc}")
+    return {"findings": findings(out), "picks": picks(out),
+            "isd": Path(f"{out}.isd").read_text(),
+            "msd": Path(f"{out}.msd").read_text(),
+            "counters": stats_counters(out)}
 
 
 def main() -> int:
@@ -413,38 +505,39 @@ def main() -> int:
           + f"; device total {sum(stages.values()):.3f}", flush=True)
 
     # -- phase 3: the main path, the port's CLI on the card ------------
-    n_iter = 3 * 8 * B
-    log, out = run_cli(
-        ["-b", str(B), "-n", str(n_iter), "-i",
-         json.dumps({"target": "tlvstack_vm", "engine": "cuda_fused",
-                     "novelty": "throughput"})], "flagship")
-    m = re.search(r"kernel launches: (\{.*\})", log)
-    if not m:
-        raise AssertionError("the CLI printed no kernel launch counts")
-    launches = json.loads(m.group(1))
-    if min(launches.values()) <= 0:
-        raise AssertionError(f"a kernel never launched on the main path: "
-                             f"{launches}")
-    eps = re.search(r"Ran (\d+) iterations in ([0-9.]+) seconds "
-                    r"\(([0-9.]+) execs/s\)", log)
-    if not eps or int(eps.group(1)) != n_iter:
-        raise AssertionError("the CLI did not run every iteration")
-    found = findings(out)
-    if not found["new_paths"]:
-        raise AssertionError("the flagship run found no new paths")
-    per_batch = float(eps.group(2)) / (n_iter // B) * 1e3
-    print(f"main path: {n_iter} execs in {eps.group(2)} s = "
-          f"{eps.group(3)} execs/s on {card} ({per_batch:.1f} ms per "
-          f"batch); launches {launches}; "
-          f"findings: {len(found['crashes'])} crashes, "
-          f"{len(found['hangs'])} hangs, {len(found['new_paths'])} new "
-          f"paths", flush=True)
+    # the default campaign (corpus feedback, stats files, events) and
+    # the same command without feedback, in turns: default, -fb 0,
+    # -fb 0, default; the first run's launch counts are the main path's
+    eps = {"default": [], "fb0": []}
+    launches = None
+    for mode, name in (("default", "flagship"), ("fb0", "flagship_fb0"),
+                       ("fb0", "flagship_fb0_2"), ("default", "flagship_2")):
+        got, rate, out = flagship(name, *(["-fb", "0"] if mode == "fb0"
+                                          else []))
+        launches = launches or got
+        eps[mode].append(rate)
+        if mode == "fb0":
+            continue
+        if not (out / "fuzzer_stats").exists():
+            raise AssertionError("the default campaign wrote no "
+                                 "fuzzer_stats")
+        arms = [arm for arm, _ in picks(out) if arm != "base"]
+        if not arms:
+            raise AssertionError("the default campaign never fuzzed an "
+                                 "admitted arm (every scheduler_pick was "
+                                 "the base seed, or none came)")
+        print(f"default campaign ({name}): {len(picks(out))} rotations, "
+              f"{len(arms)} onto admitted arms", flush=True)
+    print(f"main path execs/s on {card}: default -fb (8) "
+          f"{', '.join(f'{r:.0f}' for r in eps['default'])}; -fb 0 "
+          f"{', '.join(f'{r:.0f}' for r in eps['fb0'])} (in turns: "
+          "default, -fb 0, -fb 0, default)", flush=True)
 
     # -- phase 4: the card's findings and state against the CPU ---------
     # 12288 = one K = 8 superbatch of 1024 lanes, then four single
     # batches; throughput novelty is the flagship's, exact the parity
     # mode that 1024-lane batches default to
-    small = ["-b", "1024", "-n", "12288"]
+    small = ["-b", "1024", "-n", "12288", "-fb", "0"]
     for novelty in ("throughput", "exact"):
         iopts = {"target": "tlvstack_vm", "novelty": novelty}
         states = {}
@@ -466,6 +559,27 @@ def main() -> int:
         print(f"parity ({novelty} novelty): card == CPU "
               f"({len(findings(outs['cuda'])['new_paths'])} new paths, "
               "equal -isd states)", flush=True)
+    # the default -fb: 25 batches of 1024 lanes, rotations after 8, 16
+    # and 24 batches (the third picks an admitted arm)
+    for novelty in ("throughput", "exact"):
+        iopts = {"target": "tlvstack_vm", "novelty": novelty}
+        got = {}
+        for dev, engine in (("cuda", "cuda_fused"), ("cpu", "torch")):
+            got[dev] = inprocess(
+                OUT / f"fb_{novelty}_{dev}", "-b", "1024", "-n", "25600",
+                "--device", dev, "-i",
+                json.dumps({**iopts, "engine": engine}))
+        if got["cuda"] != got["cpu"]:
+            diff = [k for k in got["cuda"] if got["cuda"][k] != got["cpu"][k]]
+            raise AssertionError(f"card and CPU differ at the default -fb "
+                                 f"({novelty} novelty): {diff}")
+        if not any(arm != "base" for arm, _ in got["cuda"]["picks"]):
+            raise AssertionError("no rotation picked an admitted arm")
+        print(f"parity at the default -fb ({novelty} novelty, "
+              f"PIPELINE_DEPTH 1): card == CPU "
+              f"({len(got['cuda']['findings']['new_paths'])} new paths, "
+              f"picks {got['cuda']['picks']}, equal -isd, -msd and "
+              f"fuzzer_stats counters)", flush=True)
 
     # -- phase 5: the record -------------------------------------------
     kernels = [

@@ -11,7 +11,7 @@ Everything runs on the CUDA card unless the caller asks for the CPU
 instead.  Asking for the card without one is an error, never a silent
 fall back to the CPU.
 
-Package map (this slice: the flagship fuzz loop):
+Package map (the flagship fuzz loop and the CLI's default campaign):
   utils/            logging, JSON option parsing, state serialization
   models/           the KBVM bytecode VM (plain torch engine) + targets
   ops/              PRNG, havoc, coverage triage, the VM kernels
@@ -19,7 +19,10 @@ Package map (this slice: the flagship fuzz loop):
   instrumentation/  jit_harness
   mutators/         havoc
   drivers/          file
-  fuzzer/           the batched main loop + CLI
+  corpus/           the corpus store and the seed schedulers
+  telemetry/        metrics registry, stats files, event log, span ring
+  resilience/       chaos points, checkpoints, the dispatch watchdog
+  fuzzer/           the batched main loop (corpus feedback) + CLI
 """
 
 __version__ = "0.1.0"

@@ -13,6 +13,7 @@ batch is padded.
 
 from __future__ import annotations
 
+import contextlib
 from typing import Any, Dict, NamedTuple, Optional
 
 from .. import resolve_device
@@ -34,6 +35,15 @@ class Driver:
     OPTION_SCHEMA: Dict[str, type] = {}
     OPTION_DESCS: Dict[str, str] = {}
     DEFAULTS: Dict[str, Any] = {}
+
+    #: telemetry StageTimer installed by the Fuzzer; drivers time the
+    #: mutate/execute boundary with it (enqueue time only: the device
+    #: work runs on asynchronously, so no wait is forced here)
+    stage_timer = None
+
+    def _span(self, stage: str):
+        t = self.stage_timer
+        return t(stage) if t is not None else contextlib.nullcontext()
 
     def __init__(self, options: Optional[str],
                  instrumentation: Instrumentation,
@@ -103,12 +113,16 @@ class Driver:
             raise RuntimeError(f"{self.name}: batch path unavailable")
         if self._wants_fused():
             its = self.mutator.peek_iterations(n)
-            result, bufs, lens, compact = \
-                self.instrumentation.run_batch_fused(self.mutator, its)
+            with self._span("execute"):     # mutation is in-kernel
+                result, bufs, lens, compact = \
+                    self.instrumentation.run_batch_fused(self.mutator,
+                                                         its)
             self.mutator.advance(n)
         else:
-            bufs, lens = self.mutator.mutate_batch(n)
-            result = self.instrumentation.run_batch(bufs, lens)
+            with self._span("mutate"):
+                bufs, lens = self.mutator.mutate_batch(n)
+            with self._span("execute"):
+                result = self.instrumentation.run_batch(bufs, lens)
             compact = None
         self._last_batch_tail = (bufs, lens, n - 1)
         self.last_input = None
@@ -128,9 +142,10 @@ class Driver:
         calls.  Returns the stacked device tensors (packed[k, B],
         bufs[k, B, L], lens[k, B], stacked compact)."""
         its = self.mutator.peek_iterations(n)
-        packed, bufs, lens, compact = \
-            self.instrumentation.run_batch_fused_multi(self.mutator, its,
-                                                       k)
+        with self._span("execute"):
+            packed, bufs, lens, compact = \
+                self.instrumentation.run_batch_fused_multi(self.mutator,
+                                                           its, k)
         self.mutator.advance(k * n)
         self._last_batch_tail = (bufs[k - 1], lens[k - 1], n - 1)
         self.last_input = None

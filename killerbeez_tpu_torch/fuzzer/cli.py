@@ -3,21 +3,24 @@
 plus -n/-sf/-ss/-o/-d/-i/-m/-isd/-isf/-msd/-msf/-ms/-l, a batch size
 and ``--device``.
 
-Usage:
+Usage (the default campaign: corpus feedback every 8 batches with the
+bandit scheduler, stats files and the event log in -o):
     python -m killerbeez_tpu_torch.fuzzer file jit_harness havoc \
-        -sf seed.bin -b 65536 -fb 0 \
+        -sf seed.bin -b 65536 \
         -i '{"target": "tlvstack_vm", "engine": "cuda_fused"}'
 
 Runs on the CUDA card unless ``--device cpu`` is given.  Flags whose
 machinery is not ported yet are accepted by the parser and refused
-with exit status 2, naming the flag; ``-fb`` must be 0 (corpus
-feedback is not ported yet).  No stats files are written yet.
+with exit status 2, naming the flag; so is ``--schedule rare-edge``.
+Exit 86: the watchdog killed a stuck device wait; exit 87: the card
+was lost (both after a checkpoint, for a supervisor to ``--resume``).
 """
 
 from __future__ import annotations
 
 import argparse
 import json
+import os
 import sys
 from typing import List, Optional
 
@@ -35,23 +38,18 @@ from .loop import Fuzzer
 # (flags, nargs) of the reference CLI's options whose machinery is not
 # ported yet: parsed, then refused
 UNPORTED = (
-    (("--corpus-dir",), None), (("--resume",), "?"),
-    (("--schedule",), None), (("--sync-manager",), None),
-    (("--sync-campaign",), None), (("--sync-worker",), None),
-    (("--sync-interval",), None), (("--gossip",), "?"),
-    (("--gossip-fanout",), None), (("--gossip-host",), None),
-    (("--gossip-advertise",), None), (("--hybrid",), None),
-    (("--hybrid-repeats",), None), (("--hybrid-queue",), None),
-    (("--hybrid-workers",), None), (("--auto-repair",), "?"),
-    (("--crack",), "?"), (("--vsa",), "?"), (("--descend",), "?"),
-    (("--descend-lanes",), None), (("--descend-engine",), None),
-    (("--descend-scan-iters",), None), (("--learn",), "?"),
-    (("--learn-interval",), None), (("--no-focus",), "?"),
-    (("-dt", "--debug-triage"), "?"), (("--trace",), "?"),
-    (("--profile-device",), "?"), (("--events-max-mb",), None),
-    (("--watchdog",), "?"), (("--watchdog-min",), None),
-    (("--watchdog-max",), None), (("--chaos",), None),
-    (("--stats-interval",), None), (("-G", "--generations"), "?"),
+    (("--sync-manager",), None), (("--sync-campaign",), None),
+    (("--sync-worker",), None), (("--sync-interval",), None),
+    (("--gossip",), "?"), (("--gossip-fanout",), None),
+    (("--gossip-host",), None), (("--gossip-advertise",), None),
+    (("--hybrid",), None), (("--hybrid-repeats",), None),
+    (("--hybrid-queue",), None), (("--hybrid-workers",), None),
+    (("--auto-repair",), "?"), (("--crack",), "?"), (("--vsa",), "?"),
+    (("--descend",), "?"), (("--descend-lanes",), None),
+    (("--descend-engine",), None), (("--descend-scan-iters",), None),
+    (("--learn",), "?"), (("--learn-interval",), None),
+    (("--no-focus",), "?"), (("-dt", "--debug-triage"), "?"),
+    (("--profile-device",), "?"), (("-G", "--generations"), "?"),
     (("--stateful",), "?"), (("--mesh",), None),
 )
 _NOT_GIVEN = object()
@@ -87,9 +85,28 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("-msd", "--mutator-state-dump",
                    help="dump mutator state to file on exit")
     p.add_argument("-l", "--logging-options", help="logging JSON options")
-    p.add_argument("-fb", "--feedback", type=int, default=None,
-                   help="corpus feedback cadence; must be 0 (feedback "
-                        "is not ported yet)")
+    p.add_argument("-fb", "--feedback", type=int, default=-1,
+                   help="coverage-guided corpus loop: every N "
+                        "batches, rotate the seed through new-path "
+                        "findings (default: ON for randomized "
+                        "mutators, every 8 batches; 0 = off)")
+    p.add_argument("--corpus-dir",
+                   help="persistent corpus store directory: every "
+                        "edge-novel finding is written through with "
+                        "its metadata sidecar, so a campaign can be "
+                        "resumed (by either package)")
+    p.add_argument("--resume", action="store_true",
+                   help="continue a killed campaign from --corpus-dir "
+                        "(default <output>/corpus): restores rotation "
+                        "arms, scheduler stats, lifetime counters and "
+                        "mutator/instrumentation state; -n counts "
+                        "THIS invocation's execs")
+    p.add_argument("--schedule", default="bandit",
+                   choices=["bandit", "rare-edge", "rr"],
+                   help="seed-scheduling policy for corpus feedback "
+                        "(default bandit: the greedy-optimistic decay "
+                        "bandit with splice; rr: round-robin; "
+                        "rare-edge is not ported yet)")
     p.add_argument("-b", "--batch-size", type=int,
                    default=DEFAULT_BATCH_SIZE,
                    help="candidates per device step")
@@ -99,9 +116,48 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--device", default="cuda",
                    help='"cuda" (default: the card) or "cpu" (the '
                         "plain PyTorch versions)")
+    p.add_argument("--trace", type=int, nargs="?", const=65536,
+                   default=0, metavar="MAX_SPANS",
+                   help="flight recorder: record pipeline trace spans "
+                        "(one lane per in-flight batch) into a bounded "
+                        "ring and export <output>/trace.json (Chrome "
+                        "trace-event JSON); the optional value caps "
+                        "the ring in events (default 65536)")
+    p.add_argument("--events-max-mb", type=float, default=0.0,
+                   metavar="MB",
+                   help="rotate <output>/events.jsonl to "
+                        "events.jsonl.1 when it exceeds this many "
+                        "megabytes (0 = unbounded, the default)")
+    p.add_argument("--watchdog", type=float, nargs="?", const=8.0,
+                   default=0.0, metavar="MULT",
+                   help="dispatch watchdog: every blocking device "
+                        "wait gets a deadline of MULT x the EMA batch "
+                        "time (default 8 when bare), clamped to "
+                        "[--watchdog-min, --watchdog-max]; a stall "
+                        "dumps in-flight lane state, checkpoints and "
+                        "exits 86")
+    p.add_argument("--watchdog-min", type=float, default=5.0,
+                   metavar="S",
+                   help="watchdog deadline floor in seconds "
+                        "(default 5)")
+    p.add_argument("--watchdog-max", type=float, default=120.0,
+                   metavar="S",
+                   help="watchdog deadline ceiling in seconds "
+                        "(default 120)")
+    p.add_argument("--chaos", metavar="SPEC",
+                   help="fault-injection spec (JSON, or @file) fired "
+                        "at the chaos points — device dispatch/wait, "
+                        "persistence, finding and event writes (also "
+                        "read from the KBZ_CHAOS environment "
+                        "variable)")
     p.add_argument("--no-stats", action="store_true",
-                   help="accepted for parity; no stats files are "
-                        "written yet")
+                   help="disable the campaign stats files "
+                        "(fuzzer_stats / plot_data / stats.jsonl) and "
+                        "the event log; counters still accumulate "
+                        "in-process")
+    p.add_argument("--stats-interval", type=float, default=5.0,
+                   help="seconds between stats-file snapshots "
+                        "(default 5)")
     p.add_argument("--list", action="store_true",
                    help="list components and their options, then exit")
     for flags, nargs in UNPORTED:
@@ -123,9 +179,13 @@ def main(argv: Optional[List[str]] = None) -> int:
             print(f"error: {'/'.join(flags)} is not ported yet",
                   file=sys.stderr)
             return 2
-    if args.feedback != 0:
-        print("error: -fb/--feedback: corpus feedback is not ported "
-              "yet; pass -fb 0", file=sys.stderr)
+    if args.schedule == "rare-edge":
+        # it signs each admission on a side instrumentation with edge
+        # reporting, and primes from the static edge prior: neither
+        # is ported yet
+        print("error: --schedule rare-edge is not ported yet (it needs "
+              "the edges instrumentation option and the static edge "
+              "prior); use bandit or rr", file=sys.stderr)
         return 2
     if args.list:
         print(list_components())
@@ -136,6 +196,10 @@ def main(argv: Optional[List[str]] = None) -> int:
         return 2
     try:
         setup_logging(args.logging_options)
+        # chaos harness: explicit --chaos wins; KBZ_CHAOS is how a
+        # supervisor injects faults into one child launch
+        from ..resilience import chaos as _chaos
+        _chaos.configure(args.chaos or os.environ.get("KBZ_CHAOS"))
         if args.seed_file:
             seed = read_file(args.seed_file)
         elif args.seed_string:
@@ -161,15 +225,50 @@ def main(argv: Optional[List[str]] = None) -> int:
                                 instrumentation, mutator,
                                 device=args.device)
 
+        corpus_dir = args.corpus_dir
+        if args.resume and not corpus_dir:
+            corpus_dir = os.path.join(args.output, "corpus")
+        watchdog = None
+        if args.watchdog > 0:
+            from ..resilience.watchdog import DispatchWatchdog
+            watchdog = DispatchWatchdog(
+                multiplier=args.watchdog,
+                min_deadline=args.watchdog_min,
+                max_deadline=args.watchdog_max)
+
         fuzzer = Fuzzer(driver, output_dir=args.output,
-                        batch_size=args.batch_size, feedback=0,
-                        accumulate=args.accumulate)
-        stats = fuzzer.run(args.iterations)
+                        batch_size=args.batch_size,
+                        feedback=args.feedback,
+                        accumulate=args.accumulate,
+                        stats=not args.no_stats,
+                        stats_interval=args.stats_interval,
+                        scheduler=args.schedule,
+                        corpus_dir=corpus_dir,
+                        resume=args.resume,
+                        trace=args.trace,
+                        events_max_mb=args.events_max_mb,
+                        watchdog=watchdog)
+        try:
+            stats = fuzzer.run(args.iterations)
+        except Exception as e:
+            # run()'s finally already checkpointed; classify a lost
+            # card for a supervisor (exit 87: re-probe the devices
+            # before restarting into --resume)
+            from ..resilience import DEVICE_LOST_EXIT_CODE, \
+                is_device_loss
+            if is_device_loss(e):
+                fuzzer.telemetry.event("device_lost",
+                                       error=str(e)[:300])
+                print(f"error: device lost: {e}", file=sys.stderr)
+                return DEVICE_LOST_EXIT_CODE
+            raise
+        # both rates read the SAME registry the loop recorded into
         INFO_MSG(
             "results: %d crashes (%d unique), %d hangs (%d unique), "
-            "%d new paths; %.0f execs/s", stats.crashes,
-            stats.unique_crashes, stats.hangs, stats.unique_hangs,
-            stats.new_paths, stats.execs_per_sec)
+            "%d new paths; %.0f execs/s lifetime (%.0f recent)",
+            stats.crashes, stats.unique_crashes, stats.hangs,
+            stats.unique_hangs, stats.new_paths, stats.execs_per_sec,
+            stats.execs_per_sec_ema)
         INFO_MSG("kernel launches: %s", json.dumps(LAUNCHES))
 
         # state dumps on exit (reference fuzzer/main.c:426-447)

@@ -63,6 +63,9 @@ class Mutator:
         if len(input_bytes) == 0:
             raise ValueError(f"{self.name}: empty seed input")
         if keep_length:
+            # corpus-feedback rotation: the candidate width L is part
+            # of every kernel launch's shape (and picks the kernels'
+            # shared-memory plan) — a seed swap keeps it
             if len(input_bytes) > self.max_length:
                 raise ValueError(
                     f"{self.name}: seed ({len(input_bytes)}) exceeds "
@@ -73,13 +76,18 @@ class Mutator:
             self.max_length = _round_up(L, 8)  # word-aligned maps
         buf = np.zeros(self.max_length, dtype=np.uint8)
         buf[:len(input_bytes)] = np.frombuffer(input_bytes, dtype=np.uint8)
+        # assigned only after validation: a rejected keep_length swap
+        # must not leave seed_bytes describing a seed the buffers
+        # don't (state dumps would serialize the wrong walk)
         self.seed_bytes = input_bytes
         self.seed_buf = buf
         self.seed_len = len(input_bytes)
 
     def set_input(self, input_bytes: bytes,
                   keep_length: bool = False) -> None:
-        """Swap the seed (reference set_input); resets the walk."""
+        """Swap the seed (reference set_input); resets the walk
+        position.  ``keep_length`` keeps the candidate buffer width
+        (raises ValueError if the new seed does not fit)."""
         self._set_seed_buffer(bytes(input_bytes), keep_length)
         self.iteration = 0
 

@@ -57,12 +57,29 @@ class HavocMutator(_KeyedMutator):
 
     def _seed_on_device(self) -> torch.Tensor:
         """``seed_buf`` on the mutator's device, copied once per seed
-        buffer."""
+        buffer (each corpus-feedback rotation makes a new one)."""
         if self._seed_cache is None or \
                 self._seed_cache[0] is not self.seed_buf:
-            self._seed_cache = (self.seed_buf, torch.as_tensor(
-                self.seed_buf, device=self.device))
+            self._seed_cache = (self.seed_buf, self._upload(self.seed_buf))
         return self._seed_cache[1]
+
+    def _upload(self, buf: np.ndarray) -> torch.Tensor:
+        """A copy of ``buf`` on the device that never waits for it: a
+        copy from pageable memory would wait for every batch already
+        queued, so the bytes go through a fresh pinned staging tensor
+        with a non-blocking copy on the kernels' stream, ordered after
+        the batches that still read the old seed.  The staging tensor
+        can go at once: PyTorch's pinned-memory allocator records an
+        event for the copy and reuses the block only once it has
+        completed."""
+        if self.device.type != "cuda":
+            return torch.as_tensor(buf)
+        staging = torch.empty(buf.shape, dtype=torch.uint8,
+                              pin_memory=True)
+        staging.numpy()[:] = buf
+        dev = torch.empty(buf.shape, dtype=torch.uint8, device=self.device)
+        dev.copy_(staging, non_blocking=True)
+        return dev
 
     def _generate(self, its):
         sp = int(self.options["stack_pow2"])

@@ -2,14 +2,17 @@
 process, under cProfile.
 
     python -m killerbeez_tpu_torch.tools.host_profile [-b 65536] \
-        [-n 1572864] [--target tlvstack_vm] [--runs 2] [--top 14]
+        [-n 1572864] [--target tlvstack_vm] [--runs 2] [--top 14] \
+        [-fb N]
 
-Runs ``file jit_harness havoc -fb 0 -m '{"seed": 3}'`` with engine
-cuda_fused and throughput novelty on the target's built-in seed, ``runs``
-times in one process: the first run is cold (torch's lazily loaded CUDA
-modules, the allocators, the kernel build), the later ones warm.  For
-each run it prints the execs/s beside the card's name and power limit,
-and for the last the functions that took the most host time.  Outputs
+Runs ``file jit_harness havoc -m '{"seed": 3}'`` with engine cuda_fused
+and throughput novelty on the target's built-in seed — the default
+campaign (corpus feedback, stats files, events) unless ``-fb`` is
+given — ``runs`` times in one process: the first run is cold (torch's
+lazily loaded CUDA modules, the allocators, the kernel build), the
+later ones warm.  For each run it prints the execs/s beside the card's
+name and power limit, and for the last the functions that took the
+most host time, then those matching ``--focus``.  Outputs
 go to build/host_profile/ in the checkout.
 """
 
@@ -44,6 +47,15 @@ def main(argv=None) -> int:
     p.add_argument("--target", default="tlvstack_vm")
     p.add_argument("--runs", type=int, default=2)
     p.add_argument("--top", type=int, default=14)
+    p.add_argument("--focus", default=r"telemetry|corpus|resilience|"
+                   r"_rotate_seed|_drain_ready|_credit_period|_upload|"
+                   r"_admit_arm|_record",
+                   help="regex of the functions to list by cumulative "
+                        "time after the top list (default: the corpus "
+                        "feedback and telemetry tiers)")
+    p.add_argument("-fb", type=int, default=None,
+                   help="the CLI's -fb (default: not given, so the "
+                        "CLI's own default applies)")
     a = p.parse_args(argv)
     if not torch.cuda.is_available():
         print("host_profile: no CUDA card", file=sys.stderr)
@@ -55,7 +67,8 @@ def main(argv=None) -> int:
     OUT.mkdir(parents=True, exist_ok=True)
     seed = OUT / "seed.bin"
     seed.write_bytes(getattr(targets_cgc, f"{a.target}_seed")())
-    argv = ["file", "jit_harness", "havoc", "-sf", str(seed), "-fb", "0",
+    fb = [] if a.fb is None else ["-fb", str(a.fb)]
+    argv = ["file", "jit_harness", "havoc", "-sf", str(seed), *fb,
             "-m", json.dumps({"seed": 3}), "-b", str(a.b), "-n", str(a.n),
             "-l", '{"level": 5}', "-o", str(OUT / "output"), "-i",
             json.dumps({"target": a.target, "engine": "cuda_fused",
@@ -73,17 +86,24 @@ def main(argv=None) -> int:
         if rc != 0:
             print(f"host_profile: the CLI exited {rc}", file=sys.stderr)
             return rc
-        print(f"run {run} ({'cold' if run == 0 else 'warm'}): {a.n} "
+        print(f"run {run} ({'cold' if run == 0 else 'warm'}, -fb "
+              f"{'default' if a.fb is None else a.fb}): {a.n} "
               f"execs in {wall:.3f} s = {a.n / wall:.0f} execs/s on "
               f"{card}", flush=True)
-    text = io.StringIO()
-    pstats.Stats(prof, stream=text).sort_stats("tottime").print_stats(
-        a.top)
-    (OUT / "profile.txt").write_text(text.getvalue())
-    print("host time of the last run, top by own time:")
-    for line in text.getvalue().splitlines():
-        if re.match(r"\s+\d", line):
-            print("  " + line.strip()[:150])
+    report = ""
+    for title, key, restrict in (
+            ("top by own time", "tottime", ()),
+            (f"functions matching {a.focus!r}, by cumulative time",
+             "cumulative", (a.focus,))):
+        text = io.StringIO()
+        pstats.Stats(prof, stream=text).sort_stats(key).print_stats(
+            *restrict, a.top)
+        report += text.getvalue()
+        print(f"host time of the last run, {title}:")
+        for line in text.getvalue().splitlines():
+            if re.match(r"\s+\d", line):
+                print("  " + line.strip()[:150])
+    (OUT / "profile.txt").write_text(report)
     return 0
 
 

@@ -17,8 +17,13 @@ def read_file(path: Union[str, os.PathLike]) -> bytes:
 
 
 def write_buffer_to_file(path: Union[str, os.PathLike], buf: Buf) -> None:
+    # chaos seam (resilience/chaos.py): finding writes can be made to
+    # tear, hit ENOSPC, or die mid-write under --chaos
+    from ..resilience.chaos import chaos_point
+    data = bytes(buf)
+    chaos_point("fs_write", path=str(path), data=data)
     with open(path, "wb") as f:
-        f.write(bytes(buf))
+        f.write(data)
 
 
 def file_exists(path: Union[str, os.PathLike]) -> bool:

@@ -2,7 +2,7 @@
 ``tlvstack_vm`` at ``-fb 0`` writes the same md5 sets under
 crashes/, hangs/ and new_paths/ and dumps the same instrumentation
 state string; each package loads the other's state; unported flags
-exit 2 naming the flag."""
+(and ``--schedule rare-edge``) exit 2 naming the flag."""
 
 import json
 import os
@@ -87,25 +87,16 @@ def test_state_loads_across_packages(campaigns):
 
 
 @pytest.mark.parametrize("extra,flag", [
-    (["--corpus-dir", "c"], "--corpus-dir"), (["--resume"], "--resume"),
+    (["--schedule", "rare-edge"], "--schedule"),
+    (["--sync-manager", "m"], "--sync-manager"),
     (["-G", "4"], "--generations"), (["--mesh", "4,2"], "--mesh"),
-    (["--trace"], "--trace"), (["--watchdog", "4"], "--watchdog"),
+    (["--crack"], "--crack"), (["--profile-device"], "--profile-device"),
 ])
 def test_unported_flag_exits_2(extra, flag, tmp_path, capsys):
     argv = _argv(tmp_path / "none", tmp_path / "o", "--device", "cpu",
                  *extra)
     assert main(argv) == 2
     assert flag in capsys.readouterr().err
-
-
-@pytest.mark.parametrize("fb", [None, "8"])
-def test_feedback_must_be_zero(fb, tmp_path, capsys):
-    argv = ["file", "jit_harness", "havoc", "-ss", "AAAA", "--device",
-            "cpu", "-o", str(tmp_path)]
-    if fb is not None:
-        argv += ["-fb", fb]
-    assert main(argv) == 2
-    assert "-fb" in capsys.readouterr().err
 
 
 def test_card_requested_without_one(tmp_path, capsys, monkeypatch):

@@ -167,3 +167,45 @@ def test_fused_dispatch_never_waits_for_the_card(cuda, monkeypatch):
     assert mut.iteration == 4 * 2048
     # the fused kernel drew every lane's havoc words itself
     assert bits_calls == []
+
+
+def test_rotation_never_waits_for_the_card(cuda, tmp_path):
+    """Corpus feedback at -fb 8 over four rotation boundaries (rr: the
+    base seed, then admitted arms): each seed swap uploads through
+    pinned staging with a non-blocking copy, and nothing at a boundary
+    waits for the card (a host sync raises under sync debug mode
+    "error"; the loop's only waits are the CUDA events of its host
+    copies, which that mode does not count)."""
+    from killerbeez_tpu_torch.drivers.factory import driver_factory
+    from killerbeez_tpu_torch.fuzzer.loop import Fuzzer
+    from killerbeez_tpu_torch.instrumentation.jit_harness import (
+        JitHarnessInstrumentation,
+    )
+    from killerbeez_tpu_torch.mutators.randomized import HavocMutator
+
+    instr = JitHarnessInstrumentation(
+        '{"target": "tlvstack_vm", "engine": "cuda_fused", '
+        '"novelty": "throughput"}')
+    mut = HavocMutator('{"seed": 3}', targets_cgc.tlvstack_vm_seed())
+    width = mut.max_length
+    drv = driver_factory("file", None, instr, mut)
+    fz = Fuzzer(drv, output_dir=str(tmp_path), batch_size=2048,
+                feedback=8, scheduler="rr")
+    fz.run(8 * 2048)       # first use: the kernel build, allocations
+    torch.cuda.synchronize()
+    assert fz.scheduler.arms and fz.scheduler.rotations == 0
+    seeds = set()
+    real_set_input = mut.set_input
+
+    def set_input(buf, keep_length=False):
+        seeds.add(bytes(buf))
+        real_set_input(buf, keep_length)
+    mut.set_input = set_input
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        fz.run(40 * 2048)    # to 40 batches: boundaries after 8, 16, 24, 32
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert fz.scheduler.rotations == 4
+    assert len(seeds) >= 2 and mut.max_length == width
+    assert mut.iteration == 40 * 2048
