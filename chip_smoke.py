@@ -11,8 +11,11 @@ It builds the CUDA kernels from ``killerbeez_tpu_torch/csrc`` and:
   2. at the flagship shapes (target tlvstack_vm, B = 65536 lanes,
      L = 64, havoc stack_pow2 4) holds ``kbz_fuzz_kernel`` (at the
      phase-1 budget the main path gives it; it draws each lane's havoc
-     words from the base key and the lane's iteration number) against
-     its plain PyTorch version on all seven outputs, ``kbz_vm_kernel``
+     words from the base key and the lane's iteration number, and
+     reads its seed from a ring on the card: the one-slot ring of the
+     host-driven loop, slot 3 of eight random rows shorter than L, and
+     slot 7 of a 32-slot ring, the -G shape) against its plain PyTorch
+     version on all seven outputs, ``kbz_vm_kernel``
      with and without a lane list against the plain VM, and the
      two-phase glue against a single phase; then both kernels again on
      fixedform_vm, whose edge table is read from device memory instead
@@ -47,8 +50,27 @@ It builds the CUDA kernels from ``killerbeez_tpu_torch/csrc`` and:
      third rotation picks an admitted arm), under both novelties, and
      requires equal md5 sets, ``-isd`` and ``-msd`` states, rotation
      picks and ``fuzzer_stats`` counters;
-  5. prints one ``{"kernels": [...]}`` line, then the card line, then
-     the result line ``{"ok": true, "device": {...}}`` last.
+  5. the device-resident generation loop (``-G``): (a) in this
+     process, ``run_batch_generations`` on the card against the CPU's
+     plain path on tlvstack_vm (1000 lanes padded to 1024, two
+     dispatches of G = 4, reseeding on and off, both novelties): every
+     outcome field, the final ring and the virgin maps equal; (b) the
+     CLI at ``-G 4 -b 1024 -n 32768``, card against CPU, at the
+     default ``-fb`` and at ``-fb 0`` (md5 sets, ``-isd``,
+     ``ring_admit`` sequences, ``fuzzer_stats`` counters; the default
+     run must admit ring slots), and on the card ``-G 4 -fb 0``
+     against the host-driven ``-fb 0`` loop; (c) the flagship at
+     ``-G 16`` (six dispatches, default ``-fb``) and the host-driven
+     ``-fb 0`` flagship in turns (-G, host, host, -G): exit 0, both
+     kernels launched, findings, ``generations_per_dispatch`` 16 in
+     ``stats.jsonl``, ring admissions, the four execs/s; (d) device ms
+     per generation by stage at the flagship shape (slot pick, phase
+     1, phase 2, triage, packing, ring append) and the device's idle
+     share over one ``-G 16`` dispatch;
+  6. prints one ``{"kernels": [...]}`` line (launches: the first
+     host-driven and the first ``-G 16`` flagship run together), then
+     the card line, then the result line ``{"ok": true, "device":
+     {...}}`` last.  Each phase's wall time is printed as it ends.
 
 Any failure raises: the script exits non-zero and prints no result.
 Outputs go to build/chip_smoke/ in the checkout.
@@ -68,6 +90,7 @@ import json
 import os
 import re
 import shutil
+import statistics
 import subprocess
 import sys
 import time
@@ -171,9 +194,13 @@ def cli_argv(out, *args):
             '{"level": 1}', *args]
 
 
+#: kernel launches of every CLI subprocess of this run, by kernel
+CLI_LAUNCHES: dict = {}
+
+
 def run_cli(args, name):
     """Run the port's CLI in a subprocess; returns (stderr text, output
-    dir)."""
+    dir).  Its kernel launches add to CLI_LAUNCHES."""
     out = OUT / name
     shutil.rmtree(out, ignore_errors=True)
     cmd = [sys.executable, "-m", "killerbeez_tpu_torch.fuzzer",
@@ -187,6 +214,9 @@ def run_cli(args, name):
         raise RuntimeError(f"CLI {name} exited {proc.returncode}:\n"
                            f"{log[-3000:]}")
     print(f"cli {name}: exit 0 in {wall:.1f} s wall", flush=True)
+    m = re.search(r"kernel launches: (\{.*\})", log)
+    for k, v in (json.loads(m.group(1)) if m else {}).items():
+        CLI_LAUNCHES[k] = CLI_LAUNCHES.get(k, 0) + v
     return log, out
 
 
@@ -220,8 +250,9 @@ def check_program(vk, name, dev, n, L, seed_len=None, n_edges=None):
     instrs = torch.as_tensor(prog.instrs, device=dev)
     table = torch.as_tensor(prog.edge_table, device=dev)
     its = torch.arange(n, dtype=torch.int64, device=dev)
-    fargs = (instrs, table, seed, seed_len, prng.key(MUT_SEED, device=dev),
-             its, prog.mem_size, prog.max_steps, ne, STACK_POW2)
+    fargs = (instrs, table, *vk.seed_ring(seed, seed_len),
+             prng.key(MUT_SEED, device=dev), its, prog.mem_size,
+             prog.max_steps, ne, STACK_POW2)
     res, bufs, lens = vk.fuzz_batch(*fargs)
     shared = [vk.LAST_CONFIG["kbz_fuzz_kernel"]["lane_state_shared"]]
     ref, rbufs, rlens = vk.fuzz_batch_plain(*fargs)
@@ -315,6 +346,267 @@ def inprocess(out: Path, *args):
             "counters": stats_counters(out)}
 
 
+# -- the generation loop (-G) ------------------------------------------
+
+GEN_IOPTS = {"target": "tlvstack_vm", "novelty": "throughput"}
+MAPS = ("virgin_bits", "virgin_crash", "virgin_tmout")
+
+
+def ring_admits(out: Path):
+    return [(e["md5"], e["slot"], e["gen"], e["parent"])
+            for e in events(out) if e["type"] == "ring_admit"]
+
+
+def ring_case(vk, instrs, table, key, its, ms, steps, ne, dev, L,
+              seed=None, seed_len=0, sel=3, slots=8):
+    """The fused kernel's ring form: ``slots`` rows of random bytes with
+    random lengths below L, the seed (if given) in row ``sel``.
+    Returns (the kernel's outputs against its plain version's max abs
+    error, the kernel's arguments)."""
+    gen = torch.Generator().manual_seed(MUT_SEED + sel)
+    ring = torch.randint(0, 256, (slots, L), dtype=torch.uint8,
+                         generator=gen).to(dev)
+    lens = torch.randint(1, L, (slots,), dtype=torch.int32,
+                         generator=gen).to(dev)
+    if seed is not None:
+        ring[sel] = seed
+        lens[sel] = seed_len
+    args = (instrs, table, ring, lens,
+            torch.tensor(sel, dtype=torch.int32, device=dev), key, its, ms,
+            steps, ne, STACK_POW2)
+    got = vk.fuzz_batch(*args)
+    ref = vk.fuzz_batch_plain(*args)
+    return max_abs_err(list(got[0]) + list(got[1:]),
+                       list(ref[0]) + list(ref[1:])), args
+
+
+def gen_dispatch_parity():
+    """``run_batch_generations`` on the card (cuda_fused) against the
+    CPU's plain path on tlvstack_vm: 1000 lanes padded to 1024, two
+    dispatches of G = 4, reseeding on and off, both novelties; every
+    outcome field, the final ring and the virgin maps must be equal
+    (tolerance: none)."""
+    from killerbeez_tpu_torch.instrumentation.jit_harness import (
+        JitHarnessInstrumentation,
+    )
+    from killerbeez_tpu_torch.models.targets_cgc import tlvstack_vm_seed
+    from killerbeez_tpu_torch.mutators.randomized import HavocMutator
+    admitted = 0
+    for reseed in (True, False):
+        for novelty in ("throughput", "exact"):
+            got = {}
+            for dev, engine in (("cuda", "cuda_fused"), ("cpu", "torch")):
+                instr = JitHarnessInstrumentation(json.dumps(
+                    {**GEN_IOPTS, "novelty": novelty, "engine": engine}),
+                    device=dev)
+                mut = HavocMutator(json.dumps({"seed": MUT_SEED}),
+                                   tlvstack_vm_seed(), device=dev)
+                outs = []
+                for _ in range(2):
+                    out = instr.run_batch_generations(
+                        mut, mut.peek_iterations(1000), 4, pad_to=1024,
+                        reseed=reseed)
+                    mut.advance(4000)
+                    outs.append(out.materialize())
+                got[dev] = (outs, [t.cpu() for t in instr._gen_ring.view()],
+                            [getattr(instr, m).cpu() for m in MAPS])
+            (c_outs, c_ring, c_maps), (p_outs, p_ring, p_maps) = \
+                got["cuda"], got["cpu"]
+            for co, po in zip(c_outs, p_outs):
+                for f in co._fields:
+                    a, b = getattr(co, f), getattr(po, f)
+                    if not (a == b if isinstance(a, int)
+                            else (a.shape == b.shape and (a == b).all())):
+                        raise AssertionError(
+                            f"-G dispatch: card and CPU differ in {f} "
+                            f"(reseed {reseed}, {novelty})")
+            for name, a, b in zip(("ring",) * 6 + MAPS, c_ring + c_maps,
+                                  p_ring + p_maps):
+                if not torch.equal(a, b):
+                    raise AssertionError(f"-G dispatch: card and CPU "
+                                         f"differ in the final {name}")
+            filled = int(c_outs[-1].ring_filled.sum())
+            admitted = max(admitted, filled - 1)
+            print(f"-G dispatch parity (reseed {reseed}, {novelty}): card "
+                  f"== CPU over 2 x 4 generations (findings ring "
+                  f"{int(c_outs[-1].fr_ptr)} rows, ring filled {filled})",
+                  flush=True)
+    if not admitted:
+        raise AssertionError("-G dispatch parity: the ring never admitted")
+
+
+def gen_cli_parity():
+    """The port's CLI at -G 4 -b 1024 -n 32768: cuda_fused on the card
+    against torch on the CPU at the default -fb (ring reseeding on) and
+    at -fb 0; and on the card -G 4 -fb 0 against the host-driven -fb 0
+    loop (the determinism contract)."""
+    small = ["-b", "1024", "-n", "32768"]
+    got = {}
+    for mode, extra in (("default", ["-G", "4"]),
+                        ("fb0", ["-G", "4", "-fb", "0"]),
+                        ("host_fb0", ["-fb", "0"])):
+        for dev, engine in (("cuda", "cuda_fused"), ("cpu", "torch")):
+            if mode == "host_fb0" and dev == "cpu":
+                continue
+            name = f"gen_{mode}_{dev}"
+            state = OUT / f"{name}.isd"
+            _, out = run_cli(small + extra + [
+                "--device", dev, "-isd", str(state), "-i",
+                json.dumps({**GEN_IOPTS, "engine": engine})], name)
+            got[(mode, dev)] = {"findings": findings(out),
+                                "isd": state.read_text(),
+                                "admits": ring_admits(out),
+                                "counters": stats_counters(out)}
+    for mode in ("default", "fb0"):
+        if got[(mode, "cuda")] != got[(mode, "cpu")]:
+            c, p = got[(mode, "cuda")], got[(mode, "cpu")]
+            raise AssertionError(f"-G 4 ({mode}): card and CPU differ in "
+                                 f"{[k for k in c if c[k] != p[k]]}")
+    admits = got[("default", "cuda")]["admits"]
+    if not admits or min(slot for _, slot, _, _ in admits) < 1:
+        raise AssertionError("-G 4 at the default -fb admitted no ring "
+                             "slot >= 1")
+    host, gen = got[("host_fb0", "cuda")], got[("fb0", "cuda")]
+    for k in ("findings", "isd", "counters"):
+        if host[k] != gen[k]:
+            raise AssertionError(f"-G 4 -fb 0 differs from the host-driven "
+                                 f"-fb 0 loop in {k}")
+    print(f"-G CLI parity: card == CPU at the default -fb "
+          f"({len(admits)} ring admissions, "
+          f"{len(got[('default', 'cuda')]['findings']['new_paths'])} new "
+          f"paths) and at -fb 0; on the card -G 4 -fb 0 == the host-driven "
+          f"-fb 0 loop ({len(gen['findings']['new_paths'])} new paths)",
+          flush=True)
+
+
+def gen_flagship(name):
+    """The flagship at -G 16 and the default -fb; checks the gauge and
+    the ring admissions.  Returns flagship()'s (launches, execs/s)."""
+    launches, rate, out = flagship(name, "-G", "16")
+    gauges = [json.loads(line).get("gauges", {}) for line in
+              (out / "stats.jsonl").read_text().splitlines()
+              if line.strip()]
+    if not any(g.get("generations_per_dispatch") == 16 for g in gauges):
+        raise AssertionError(f"{name}: no generations_per_dispatch 16 in "
+                             "stats.jsonl")
+    admits = ring_admits(out)
+    if not admits:
+        raise AssertionError(f"{name}: no ring_admit event")
+    print(f"{name}: {len(admits)} ring admissions", flush=True)
+    return launches, rate
+
+
+def gen_stages(card):
+    """Device ms per generation by stage at the flagship shape (65536
+    lanes, a ring filled by one warm-up -G 16 dispatch), and the device's
+    idle share over one -G 16 dispatch: 1 - 16 x (the stages' device
+    time) / (the time between CUDA events recorded before and after the
+    dispatch is enqueued)."""
+    from killerbeez_tpu_torch.instrumentation import jit_harness as jh
+    from killerbeez_tpu_torch.instrumentation.base import pack_verdicts
+    from killerbeez_tpu_torch.models.targets_cgc import tlvstack_vm_seed
+    from killerbeez_tpu_torch.mutators.randomized import HavocMutator
+    from killerbeez_tpu_torch.ops import generations as gn
+    from killerbeez_tpu_torch.ops import vm_kernel as vk
+    from killerbeez_tpu_torch.tools.timing import timed
+    instr = jh.JitHarnessInstrumentation(json.dumps(
+        {**GEN_IOPTS, "engine": "cuda_fused"}))
+    mut = HavocMutator(json.dumps({"seed": MUT_SEED}), tlvstack_vm_seed())
+    g = 16
+
+    def dispatch():
+        out = instr.run_batch_generations(mut, mut.peek_iterations(B), g,
+                                          pad_to=B)
+        mut.advance(g * B)
+        return out
+
+    dispatch().materialize()          # warm-up: the ring fills
+    torch.cuda.synchronize()
+    walls, hosts = [], []
+    for _ in range(3):
+        e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        e0.record()
+        t0 = time.perf_counter()
+        out = dispatch()
+        hosts.append((time.perf_counter() - t0) * 1e3)
+        e1.record()
+        e1.synchronize()
+        walls.append(e0.elapsed_time(e1))
+        out.materialize()
+    ring = instr._gen_ring
+    ring = ring._replace(**{f: getattr(ring, f).clone()
+                            for f in ring._fields})
+    p = instr.program
+    key = mut.fused_spec()[2]
+    its = instr._its(mut.peek_iterations(B))
+    gid, salt = instr._gen_count, MUT_SEED
+    sel = gn._select_slot(ring.filled[:ring.slots], gid, salt)
+    args = (instr._instrs, instr._edge_table, ring.bufs, ring.lens, sel,
+            key, its, p.mem_size)
+    p1 = instr.phase1_steps
+    res1, bufs, lens = vk.fuzz_batch(*args, p1, p.n_edges, STACK_POW2)
+    res, _, _ = vk.fuzz_batch_2phase(*args, p.max_steps, p.n_edges,
+                                     STACK_POW2, phase1_steps=p1)
+    vb, vc, vh = instr.virgin_bits, instr.virgin_crash, instr.virgin_tmout
+    tri = jh._judge(res, instr._u_slots, instr._seg_id, vb, vc, vh, False)
+    statuses, new_paths, uc, uh = tri[:4]
+    real = torch.ones(B, dtype=torch.bool, device=its.device)
+
+    def flags():
+        packed = pack_verdicts(statuses, new_paths, uc, uh)
+        return (packed, ((statuses != 0) | (new_paths > 0)) & real,
+                (new_paths == 2) & real)
+
+    packed, fl, afl = flags()
+    F = gn.gen_ring_caps(8, 0, B, ring.slots)[1]
+    fr = [torch.zeros(F + 1, dtype=dt, device=its.device) for dt in
+          (torch.uint8, torch.int32, torch.int64, torch.int32)] + [
+        torch.zeros((F + 1, bufs.shape[1]), dtype=torch.uint8,
+                    device=its.device),
+        torch.zeros((), dtype=torch.int32, device=its.device)]
+    stages = {
+        "select_slot": timed(lambda: gn._select_slot(
+            ring.filled[:ring.slots], gid, salt), 5),
+        "phase1": timed(lambda: vk.fuzz_batch(*args, p1, p.n_edges,
+                                              STACK_POW2), 5),
+        "phase2": timed(lambda: vk.run_batch(
+            instr._instrs, instr._edge_table, bufs, lens, p.mem_size,
+            p.max_steps, p.n_edges, *vk.compact_lanes(res1.status == 3)),
+            5),
+        "triage": timed(lambda: jh._judge(res, instr._u_slots,
+                                          instr._seg_id, vb, vc, vh,
+                                          False), 5),
+        "pack+flags": timed(flags, 5),
+        "ring append": timed(lambda: gn._ring_append_and_admit(
+            fl, afl, packed, its, bufs, lens, gid, sel, ring, fr, 8, True),
+            5),
+    }
+    per_gen = sum(stages.values())
+    wall = statistics.median(walls)
+    idle = 1.0 - g * per_gen / wall
+    print(f"-G stage breakdown [ms per generation of {B} lanes, median, "
+          f"{card}]: " + ", ".join(f"{k} {v:.3f}" for k, v in stages.items())
+          + f"; device total {per_gen:.3f}", flush=True)
+    print(f"-G 16 dispatch [{card}]: event span {wall:.3f} ms (runs "
+          f"{', '.join(f'{w:.3f}' for w in walls)}), host enqueue "
+          f"{statistics.median(hosts):.3f} ms, stages x 16 "
+          f"{g * per_gen:.3f} ms, device idle share {idle:.3f}", flush=True)
+    return stages, wall, idle
+
+
+class Phases:
+    """Prints each phase's wall time as the next one starts."""
+
+    def __init__(self):
+        self.name, self.t0 = None, time.perf_counter()
+
+    def start(self, name):
+        if self.name:
+            print(f"phase {self.name}: {time.perf_counter() - self.t0:.1f} "
+                  "s wall", flush=True)
+        self.name, self.t0 = name, time.perf_counter()
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA card (torch.cuda.is_available() is "
@@ -327,6 +619,8 @@ def main() -> int:
     from killerbeez_tpu_torch.tools.timing import timed
 
     # -- phase 1: card, versions, build --------------------------------
+    phases = Phases()
+    phases.start("1 (card, build)")
     card = card_line()
     kind = torch.cuda.get_device_name(0)
     print(f"card: {card}", flush=True)
@@ -353,6 +647,7 @@ def main() -> int:
                       f"{spill}", flush=True)
 
     # -- phase 2: kernels vs plain at the flagship shapes --------------
+    phases.start("2 (kernels against their plain versions)")
     dev = torch.device("cuda")
     OUT.mkdir(parents=True, exist_ok=True)
     prog = get_target("tlvstack_vm")
@@ -368,7 +663,8 @@ def main() -> int:
     key = prng.key(MUT_SEED, device=dev)
     ms, steps_max, ne = prog.mem_size, prog.max_steps, prog.n_edges
     p1 = vk.auto_phase1_steps(steps_max)
-    common = (instrs, table, seed, len(seed_bytes), key, its, ms)
+    common = (instrs, table, *vk.seed_ring(seed, len(seed_bytes)), key,
+              its, ms)
 
     res1, bufs, lens = vk.fuzz_batch(*common, p1, ne, STACK_POW2)
     ref1, rbufs, rlens = vk.fuzz_batch_plain(*common, p1, ne, STACK_POW2)
@@ -430,7 +726,21 @@ def main() -> int:
             raise AssertionError(f"the device-memory lane state path "
                                  f"failed ({label})")
 
+    # the ring form the generation loop launches: the seed is row 3 of a
+    # ring of eight random rows with random lengths below L, read on the
+    # card; then the -G shape, the flagship seed in slot 7 of 32
+    err_ring, _ = ring_case(vk, instrs, table, key, its, ms, p1, ne, dev, L)
+    err_gen, gen_args = ring_case(vk, instrs, table, key, its, ms, p1, ne,
+                                  dev, L, seed, len(seed_bytes), 7, 32)
+    print(f"kbz_fuzz_kernel ring form vs plain (slot 3 of 8 random rows; "
+          f"slot 7 of 32 holding the seed): max_abs_err {err_ring}, "
+          f"{err_gen}", flush=True)
+    if err_ring or err_gen:
+        raise AssertionError("kbz_fuzz_kernel's ring form disagrees with "
+                             "its plain version")
+    err_fuzz = max(err_fuzz, err_ring, err_gen)
     t_fuzz = timed(lambda: vk.fuzz_batch(*common, p1, ne, STACK_POW2), 7)
+    t_fuzz_ring = timed(lambda: vk.fuzz_batch(*gen_args), 7)
     t_fuzz_plain = timed(lambda: vk.fuzz_batch_plain(
         *common, p1, ne, STACK_POW2), 3)
     t_vm_list = timed(lambda: vk.run_batch(
@@ -448,7 +758,8 @@ def main() -> int:
     t_1p = timed(lambda: vk.fuzz_batch(*common, steps_max, ne,
                                        STACK_POW2), 7)
     print(f"times [ms, median, {card}]: fuzz {t_fuzz:.3f} (plain "
-          f"{t_fuzz_plain:.1f}); vm lane list {t_vm_list:.3f} (plain "
+          f"{t_fuzz_plain:.1f}; from slot 7 of a 32-slot ring "
+          f"{t_fuzz_ring:.3f}); vm lane list {t_vm_list:.3f} (plain "
           f"{t_vm_list_plain:.1f}); vm all lanes {t_vm_all:.3f} (plain "
           f"{t_vm_all_plain:.1f}); two-phase batch {t_2p:.3f}, single "
           f"phase {t_1p:.3f}", flush=True)
@@ -505,6 +816,7 @@ def main() -> int:
           + f"; device total {sum(stages.values()):.3f}", flush=True)
 
     # -- phase 3: the main path, the port's CLI on the card ------------
+    phases.start("3 (flagship CLI, host-driven loop)")
     # the default campaign (corpus feedback, stats files, events) and
     # the same command without feedback, in turns: default, -fb 0,
     # -fb 0, default; the first run's launch counts are the main path's
@@ -534,6 +846,7 @@ def main() -> int:
           "default, -fb 0, -fb 0, default)", flush=True)
 
     # -- phase 4: the card's findings and state against the CPU ---------
+    phases.start("4 (card == CPU)")
     # 12288 = one K = 8 superbatch of 1024 lanes, then four single
     # batches; throughput novelty is the flagship's, exact the parity
     # mode that 1024-lane batches default to
@@ -581,7 +894,40 @@ def main() -> int:
               f"picks {got['cuda']['picks']}, equal -isd, -msd and "
               f"fuzzer_stats counters)", flush=True)
 
-    # -- phase 5: the record -------------------------------------------
+    # -- phase 5: the device-resident generation loop (-G) -------------
+    phases.start("5a (-G dispatch parity)")
+    gen_dispatch_parity()
+    phases.start("5b (-G CLI parity)")
+    gen_cli_parity()
+    # the flagship at -G 16 (six dispatches) and the host-driven -fb 0
+    # loop, in turns: -G, host, host, -G; the first -G run's launch
+    # counts are the -G path's
+    phases.start("5c (-G 16 flagship)")
+    eps_gen = {"gen": [], "host": []}
+    gen_launches = None
+    for mode, name in (("gen", "flagship_g16"), ("host", "flagship_host"),
+                       ("host", "flagship_host_2"),
+                       ("gen", "flagship_g16_2")):
+        if mode == "gen":
+            got, rate = gen_flagship(name)
+            gen_launches = gen_launches or got
+        else:
+            rate = flagship(name, "-fb", "0")[1]
+        eps_gen[mode].append(rate)
+    print(f"-G 16 execs/s on {card}: -G 16 at the default -fb "
+          f"{', '.join(f'{r:.0f}' for r in eps_gen['gen'])}; host-driven "
+          f"-fb 0 {', '.join(f'{r:.0f}' for r in eps_gen['host'])} (in "
+          "turns: -G, host, host, -G)", flush=True)
+    phases.start("5d (-G stages, idle share)")
+    gen_stages(card)
+
+    # -- phase 6: the record -------------------------------------------
+    phases.start("6 (record)")
+    print(f"main-path launches: host-driven {launches}, -G 16 "
+          f"{gen_launches}; over this whole run: in this process "
+          f"{vk.LAUNCHES}, in its CLI subprocesses {CLI_LAUNCHES}",
+          flush=True)
+    launches = {k: launches[k] + gen_launches[k] for k in launches}
     kernels = [
         {"name": "kbz_fuzz_kernel", "route": "cuda", "source": SOURCE,
          "replaces": f"{REF}:566", "launches": launches["kbz_fuzz_kernel"],

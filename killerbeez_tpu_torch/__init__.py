@@ -11,10 +11,12 @@ Everything runs on the CUDA card unless the caller asks for the CPU
 instead.  Asking for the card without one is an error, never a silent
 fall back to the CPU.
 
-Package map (the flagship fuzz loop and the CLI's default campaign):
+Package map (the flagship fuzz loop, the CLI's default campaign and
+its device-resident generation loop):
   utils/            logging, JSON option parsing, state serialization
   models/           the KBVM bytecode VM (plain torch engine) + targets
-  ops/              PRNG, havoc, coverage triage, the VM kernels
+  ops/              PRNG, havoc, coverage triage, the VM kernels, the
+                    device-resident generation loop (-G)
   csrc/             CUDA C++ sources of the kernels
   instrumentation/  jit_harness
   mutators/         havoc

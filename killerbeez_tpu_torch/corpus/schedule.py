@@ -124,6 +124,16 @@ class Scheduler:
         # seed, so the default policy replays old campaigns exactly
         self.rng = random.Random(0x6b62)
         self._seq = 0
+        # md5 -> how many arms in rotation carry it, kept in step with
+        # every change to ``arms`` (admit, its cap eviction, drop)
+        self._md5s: Dict[str, int] = {}
+
+    def _count(self, arm: Arm, k: int) -> None:
+        n = self._md5s.get(arm.md5, 0) + k
+        if n > 0:
+            self._md5s[arm.md5] = n
+        else:
+            self._md5s.pop(arm.md5, None)
 
     # -- corpus membership ---------------------------------------------
 
@@ -134,14 +144,23 @@ class Scheduler:
         arm.seq = max(arm.seq, self._seq)
         self._seq = arm.seq + 1
         self.arms.append(arm)
+        self._count(arm, 1)
         if len(self.arms) > self.CAP:
-            return self.arms.pop(0)
+            return self.drop(0)
         return None
 
     def drop(self, index: int) -> Arm:
         """Remove an arm that cannot be scheduled (e.g. wider than the
         candidate buffer)."""
-        return self.arms.pop(index)
+        arm = self.arms.pop(index)
+        self._count(arm, -1)
+        return arm
+
+    def holds(self, md5: str) -> bool:
+        """Whether an arm in rotation carries this md5 — a set lookup,
+        not a scan of the arms.  An arm evicted past ``CAP`` or dropped
+        no longer counts, so it can be admitted again."""
+        return md5 in self._md5s
 
     # -- credit fold (shared by every policy) ---------------------------
 

@@ -24,6 +24,11 @@
 // The havoc words are jax.random's: lane i's key is fold_in(base_key,
 // its[i]) and its word j is x0 ^ x1 of threefry2x32(key, (0, j))
 // (ops/prng.py), computed here for just the words the lane uses.
+// The seed is row *sel of a ring of seeds u8[S][L] and its length
+// lens[*sel], both read on the device: the device-resident generation
+// loop (ops/generations.py) picks the slot on the card, so no host
+// round trip sits between two generations; a single seed is a ring of
+// one slot with *sel = 0.
 //
 // What bounds them on this card (chip_smoke.py counts the bytes and
 // the operations each run's data needs): kbz_fuzz_kernel is bound by
@@ -663,12 +668,15 @@ template <typename TabT, bool kShared>
 __global__ void __launch_bounds__(256) kbz_fuzz_kernel(
     Plan p, const int4* __restrict__ instrs, int ni,
     const void* __restrict__ table, int nb,
-    const uint8_t* __restrict__ seed, int L, int seed_len,
+    const uint8_t* __restrict__ ring, int L,
+    const int* __restrict__ ring_lens, const int* __restrict__ sel,
     const int64_t* __restrict__ base_key, const int64_t* __restrict__ its,
     int stack_pow2, int B, int mem_size, int max_steps, int n_edges,
     int* scratch, int cols, Out out, uint8_t* bufs, int* lens) {
   extern __shared__ __align__(16) unsigned char smem[];
   const int T = p.threads, tid = threadIdx.x;
+  const int slot = __ldg(sel);
+  const uint8_t* seed = ring + static_cast<size_t>(slot) * L;
   const int row0 = blockIdx.x * T;
   const int rows = B - row0 < T ? B - row0 : T;
   const int words = (L + 3) / 4;
@@ -701,7 +709,7 @@ __global__ void __launch_bounds__(256) kbz_fuzz_kernel(
     threefry_fold_in(static_cast<uint32_t>(__ldg(&base_key[0])),
                      static_cast<uint32_t>(__ldg(&base_key[1])),
                      static_cast<uint32_t>(__ldg(&its[lane])), k0, k1);
-    int len = seed_len;
+    int len = __ldg(&ring_lens[slot]);
     const uint32_t stack =
         1u << (1u + threefry_word(k0, k1, 0u) %
                         static_cast<uint32_t>(stack_pow2));
@@ -898,7 +906,8 @@ void report(int* cfg, const Choice& c, int grid) {
 template <typename TabT>
 int fuzz_launch(const void* instrs, int ni, int instrs_shared,
                 const void* table, int nb, int table_mode, int state_shared,
-                const void* seed, int L, int seed_len, const void* base_key,
+                const void* ring, int L, const void* ring_lens,
+                const void* sel, const void* base_key,
                 const void* its, int stack_pow2, int B, int mem_size,
                 int max_steps, int n_edges, void* scratch, int cols, Out out,
                 void* bufs, void* lens, cudaStream_t stream, int* cfg) {
@@ -912,7 +921,8 @@ int fuzz_launch(const void* instrs, int ni, int instrs_shared,
   report(cfg, c, grid);
   kern<<<grid, c.threads, c.plan.bytes, stream>>>(
       c.plan, static_cast<const int4*>(instrs), ni, table, nb,
-      static_cast<const uint8_t*>(seed), L, seed_len,
+      static_cast<const uint8_t*>(ring), L,
+      static_cast<const int*>(ring_lens), static_cast<const int*>(sel),
       static_cast<const int64_t*>(base_key), static_cast<const int64_t*>(its),
       stack_pow2, B, mem_size, max_steps, n_edges, static_cast<int*>(scratch),
       cols, out, static_cast<uint8_t*>(bufs), static_cast<int*>(lens));
@@ -968,17 +978,20 @@ extern "C" int kbz_state_rows(int fuzz, int ni, int instrs_shared, int nb,
   return (fuzz ? 2 : 1) * ((L + 3) / 4);
 }
 
-// `scratch` is int32[mem_size + state rows][cols] in device memory
-// (see scratch_buf); `state_shared` is 1 when kbz_state_rows gave 0
-// rows.  `cfg` (may be null) receives the block size, the grid, the
+// `ring` is u8[S][L], `ring_lens` int32[S] and `sel` one int32, all in
+// device memory: the seed is ring row *sel, of length ring_lens[*sel]
+// (1..L).  `scratch` is int32[mem_size + state rows][cols] in device
+// memory (see scratch_buf); `state_shared` is 1 when kbz_state_rows
+// gave 0 rows.  `cfg` (may be null) receives the block size, the grid, the
 // shared memory bytes per block, the resident blocks per SM and
 // whether the lane state is in shared memory.  Returns
 // cudaGetLastError().
 extern "C" int kbz_fuzz_launch(
     const void* instrs, int ni, int instrs_shared, const void* table, int nb,
-    int table_mode, int state_shared, const void* seed, int L, int seed_len,
-    const void* base_key, const void* its, int stack_pow2, int B,
-    int mem_size, int max_steps, int n_edges, void* scratch, int cols,
+    int table_mode, int state_shared, const void* ring, int L,
+    const void* ring_lens, const void* sel, const void* base_key,
+    const void* its, int stack_pow2, int B, int mem_size, int max_steps,
+    int n_edges, void* scratch, int cols,
     void* status, void* exit_code, void* counts, void* steps, void* hash,
     void* bufs, void* lens, void* stream, int* cfg) {
   if (B <= 0) return static_cast<int>(cudaGetLastError());
@@ -987,20 +1000,20 @@ extern "C" int kbz_fuzz_launch(
   switch (table_mode) {
     case TABLE_U8:
       return fuzz_launch<uint8_t>(instrs, ni, instrs_shared, table, nb,
-                                  table_mode, state_shared, seed, L, seed_len,
-                                  base_key, its, stack_pow2, B, mem_size,
-                                  max_steps, n_edges, scratch, cols, out,
-                                  bufs, lens, s, cfg);
+                                  table_mode, state_shared, ring, L,
+                                  ring_lens, sel, base_key, its, stack_pow2,
+                                  B, mem_size, max_steps, n_edges, scratch,
+                                  cols, out, bufs, lens, s, cfg);
     case TABLE_U16:
       return fuzz_launch<uint16_t>(instrs, ni, instrs_shared, table, nb,
-                                   table_mode, state_shared, seed, L,
-                                   seed_len, base_key, its, stack_pow2, B,
-                                   mem_size, max_steps, n_edges, scratch,
+                                   table_mode, state_shared, ring, L,
+                                   ring_lens, sel, base_key, its, stack_pow2,
+                                   B, mem_size, max_steps, n_edges, scratch,
                                    cols, out, bufs, lens, s, cfg);
     default:
       return fuzz_launch<int>(instrs, ni, instrs_shared, table, nb,
-                              TABLE_DEVICE, state_shared, seed, L, seed_len,
-                              base_key, its, stack_pow2, B, mem_size,
+                              TABLE_DEVICE, state_shared, ring, L, ring_lens,
+                              sel, base_key, its, stack_pow2, B, mem_size,
                               max_steps, n_edges, scratch, cols, out, bufs,
                               lens, s, cfg);
   }

@@ -151,6 +151,37 @@ class Driver:
         self.last_input = None
         return packed, bufs, lens, compact
 
+    def supports_batch_generations(self) -> bool:
+        """True when test_batch_generations can run: a device-backed
+        instrumentation with the generation loop (jit_harness) and a
+        fused-capable mutator with no focus mask installed.  Re-checked
+        per dispatch — the stand-down discipline of the fused
+        superbatch path."""
+        supports = getattr(self.instrumentation, "supports_generations",
+                           None)
+        return (self.supports_batch and supports is not None
+                and supports(self.mutator))
+
+    def test_batch_generations(self, n: int, g: int,
+                               pad_to: Optional[int] = None,
+                               reseed: bool = True):
+        """``g`` full fuzzing generations in one device dispatch
+        (mutate -> execute -> triage -> ring reseed all on the device);
+        the host gets back only the bounded findings ring + admission
+        ledger (a GenerationOutcome of device tensors).  Generation j
+        consumed iterations ``it0 + j*n``; the mutator advances by
+        g*n."""
+        its = self.mutator.peek_iterations(n)
+        with self._span("execute"):     # the whole loop is on the device
+            out = self.instrumentation.run_batch_generations(
+                self.mutator, its, g, pad_to=pad_to, reseed=reseed)
+        self.mutator.advance(g * n)
+        # the per-exec last-input contract doesn't apply: candidate
+        # tensors never leave the device in this mode
+        self._last_batch_tail = None
+        self.last_input = None
+        return out
+
     def cleanup(self) -> None:
         pass
 

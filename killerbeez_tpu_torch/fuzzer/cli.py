@@ -8,6 +8,8 @@ bandit scheduler, stats files and the event log in -o):
     python -m killerbeez_tpu_torch.fuzzer file jit_harness havoc \
         -sf seed.bin -b 65536 \
         -i '{"target": "tlvstack_vm", "engine": "cuda_fused"}'
+Add ``-G 16`` for the device-resident generation loop: 16 generations
+per dispatch, reseeded from a seed-slot ring on the card.
 
 Runs on the CUDA card unless ``--device cpu`` is given.  Flags whose
 machinery is not ported yet are accepted by the parser and refused
@@ -49,7 +51,6 @@ UNPORTED = (
     (("--descend-engine",), None), (("--descend-scan-iters",), None),
     (("--learn",), "?"), (("--learn-interval",), None),
     (("--no-focus",), "?"), (("-dt", "--debug-triage"), "?"),
-    (("--profile-device",), "?"), (("-G", "--generations"), "?"),
     (("--stateful",), "?"), (("--mesh",), None),
 )
 _NOT_GIVEN = object()
@@ -123,6 +124,14 @@ def build_parser() -> argparse.ArgumentParser:
                         "ring and export <output>/trace.json (Chrome "
                         "trace-event JSON); the optional value caps "
                         "the ring in events (default 65536)")
+    p.add_argument("--profile-device", type=int, nargs="?", const=8,
+                   default=0, metavar="N",
+                   help="capture a torch.profiler trace (CPU, and CUDA "
+                        "activity on the card) of N batches or "
+                        "generations (default 8 when bare) into "
+                        "<output>/device_trace/trace.json, next to the "
+                        "host trace; a profiler that cannot start "
+                        "warns and the campaign goes on")
     p.add_argument("--events-max-mb", type=float, default=0.0,
                    metavar="MB",
                    help="rotate <output>/events.jsonl to "
@@ -158,6 +167,18 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--stats-interval", type=float, default=5.0,
                    help="seconds between stats-file snapshots "
                         "(default 5)")
+    p.add_argument("-G", "--generations", type=int, nargs="?",
+                   const=16, default=0, metavar="G",
+                   help="device-resident generation loop (jit_harness "
+                        "+ havoc): the card runs up to G full "
+                        "mutate->execute->triage->reseed generations "
+                        "per host dispatch (default 16 when bare) "
+                        "against device-resident virgin maps and a "
+                        "seed-slot ring; the host only drains the "
+                        "bounded findings ring + admission ledger.  "
+                        "Stands down (warning) when the mutator cannot "
+                        "run it; with -fb 0 the candidate stream is "
+                        "bit-identical to the host-driven loop's")
     p.add_argument("--list", action="store_true",
                    help="list components and their options, then exit")
     for flags, nargs in UNPORTED:
@@ -247,7 +268,9 @@ def main(argv: Optional[List[str]] = None) -> int:
                         resume=args.resume,
                         trace=args.trace,
                         events_max_mb=args.events_max_mb,
-                        watchdog=watchdog)
+                        watchdog=watchdog,
+                        profile_device=args.profile_device,
+                        generations=args.generations)
         try:
             stats = fuzzer.run(args.iterations)
         except Exception as e:

@@ -19,9 +19,16 @@ The registry (telemetry/) counts everything; the stats files, the
 event log, the span ring, the corpus store and the watchdog hang off
 it exactly as in the JAX package.
 
-Not ported yet: generations, the crack and repair stages, sync, the
-learn and hybrid tiers, device profiling, and the single-exec loop
-(only batching backends exist).
+With ``generations`` > 1 (CLI ``-G``) the card runs G whole
+generations per dispatch (ops/generations.py) and the host only
+drains the findings ring and the admission ledger, replaying them
+through the same triage and admission stages.  ``profile_device``
+(``--profile-device``) records a ``torch.profiler`` trace of the first
+N batches or generations.
+
+Not ported yet: the mesh, the crack and repair stages, sync, the
+learn and hybrid tiers, and the single-exec loop (only batching
+backends exist).
 """
 
 from __future__ import annotations
@@ -43,6 +50,7 @@ from ..corpus.store import CorpusStore
 from ..drivers.base import BatchOutcome, Driver
 from ..instrumentation.base import CompactReport, pack_verdicts, \
     unpack_verdicts
+from ..ops.host_copy import HostCopy
 from ..resilience.chaos import chaos_point
 from ..telemetry import MetricsRegistry, Telemetry
 from ..utils.fileio import ensure_dir, md5_hex, write_buffer_to_file
@@ -55,58 +63,6 @@ def _host(x) -> np.ndarray:
     if isinstance(x, torch.Tensor):
         return x.detach().cpu().numpy()
     return np.asarray(x)
-
-
-class _HostCopy:
-    """A device tensor's host copy, started without blocking: a
-    non-blocking copy into pinned memory plus a CUDA event, waited on
-    only when the host reads it.  CPU tensors are used as they are."""
-
-    def __init__(self, t: torch.Tensor):
-        self._event = None
-        if t.device.type == "cuda":
-            self._host = torch.empty(t.shape, dtype=t.dtype,
-                                     pin_memory=True)
-            self._host.copy_(t, non_blocking=True)
-            self._event = torch.cuda.Event()
-            self._event.record()
-        else:
-            self._host = t
-        self._np = None
-
-    def ready(self) -> bool:
-        """Whether the copy has landed — a probe that never waits."""
-        return self._np is not None or self._event is None \
-            or self._event.query()
-
-    def materialize(self) -> np.ndarray:
-        if self._np is None:
-            if self._event is not None:
-                self._event.synchronize()
-            self._np = self._host.numpy()
-        return self._np
-
-    def __array__(self, dtype=None, copy=None):
-        a = self.materialize()
-        return a.astype(dtype) if dtype is not None else a
-
-    def row(self, i: int) -> "_LazyRow":
-        return _LazyRow(self, i)
-
-
-class _LazyRow:
-    """numpy-coercible view of one row of a stacked _HostCopy."""
-
-    def __init__(self, holder: _HostCopy, i: int):
-        self._holder = holder
-        self._i = i
-
-    def ready(self) -> bool:
-        return self._holder.ready()
-
-    def __array__(self, dtype=None, copy=None):
-        r = np.asarray(self._holder.materialize()[self._i])
-        return r.astype(dtype) if dtype is not None else r
 
 
 class FuzzStats:
@@ -213,7 +169,9 @@ class Fuzzer:
                  resume: bool = False,
                  trace: int = 0,
                  events_max_mb: float = 0.0,
-                 watchdog=None):
+                 watchdog=None,
+                 profile_device: int = 0,
+                 generations: int = 0):
         if not driver.supports_batch:
             raise ValueError("only batching backends are ported yet")
         self.driver = driver
@@ -266,8 +224,30 @@ class Fuzzer:
             watchdog.dump_fn = self._watchdog_dump
             watchdog.note_batch(self.batch_size)
         #: live view of the pipeline's pending deque for the watchdog
-        #: dump (set by _run_batched)
+        #: dump (set by _run_batched and _run_generations)
         self._pending = None
+        #: --profile-device: batches (or generations) still to capture
+        #: with torch.profiler into <output>/device_trace
+        self.profile_device = int(profile_device)
+        self._prof = None
+        self._prof_active = False
+        #: device-resident generation loop (--generations): the card
+        #: runs this many full mutate->execute->triage->reseed
+        #: generations per host dispatch and the host only drains the
+        #: findings ring + admission ledger (ops/generations.py);
+        #: <= 1 = host-driven loop.  Stands down (with a warning) when
+        #: the driver or mutator cannot run it.
+        self.generations = int(generations)
+        self._gen_warned = False
+        #: whether the CURRENT generations run reseeds on the device:
+        #: with reseeding off the device ledger is empty, so the drain
+        #: admits edge-novel ring lanes host-side instead — the store
+        #: write-through contract holds in both regimes
+        self._gen_reseed = True
+        #: host mirror of the device seed-slot ring (slot -> entry
+        #: md5): the admission replay's parent map, rebuilt dispatch by
+        #: dispatch from the device's ledgers
+        self._ring_mirror: Dict[int, str] = {}
         # the arm whose candidates the batch being TRIAGED came from:
         # triage lags generation by the pipeline, so finds credit the
         # GENERATING arm (entry object, robust to corpus index
@@ -468,37 +448,47 @@ class Fuzzer:
                 return None
         return None
 
-    def _admit_arm(self, buf: bytes, digest: str) -> None:
+    _NO_CREDIT = object()   # credit sentinel: None credits the base seed
+
+    def _admit_arm(self, buf: bytes, digest: str, parent: str,
+                   credit=_NO_CREDIT) -> None:
         """The ADMISSION stage of triage: mint a corpus arm for an
         edge-novel finding — store write-through, scheduler admission,
-        and one find credited to the arm that GENERATED the
-        batch (None: the base seed).  It mints no duplicate arm without
-        scanning the arms: every arm's md5 is in the new-path dedup
-        set, so a digest recorded for the first time is no arm's, and
-        the ``heal`` re-admission checks the arms itself."""
-        credit = self._credit_arm
-        arm = Arm(buf, parent=getattr(credit, "md5", None) or "base",
-                  discovered=time.time(), tier=self.tier_tag)
+        and one find credited to ``credit``, the arm that GENERATED
+        the batch (None: the base seed; ``_NO_CREDIT``: none, for the
+        --generations ledger replay).  Shared by host-side lane triage
+        and the ledger replay, which feeds the device ring's decisions
+        back through this same contract.  Never mints a duplicate arm
+        (a ring replay can re-present a digest: two identical mutants
+        of one batch, or a lane the drain already recorded), checked
+        against the scheduler's md5 set, not by a scan of the arms."""
+        arm = Arm(buf, parent=parent, discovered=time.time(),
+                  tier=self.tier_tag)
         if self.store is not None and not os.path.exists(
                 self.store.entry_path(digest)):
             arm.seq = self.store.next_seq()
             with self.telemetry.timer("fs_write"):
                 self.store.put(arm.to_entry())
-        if self.feedback:
+        if self.feedback and not self.scheduler.holds(digest):
             # admission evicts the oldest arm beyond the cap
             # (rotation only — the store keeps it); the ENTRY-object
             # credit pointers stay valid regardless
             self.scheduler.admit(arm)
-            self.scheduler.credit_find(credit)
+            if credit is not self._NO_CREDIT:
+                self.scheduler.credit_find(credit)
             self.telemetry.registry.gauge("corpus_arms",
                                           len(self.scheduler.arms))
 
     def _triage_lane(self, status: int, new_path: int, buf: bytes,
                      unique_crash: bool = False,
-                     unique_hang: bool = False) -> None:
+                     unique_hang: bool = False,
+                     admit: bool = True) -> None:
         """VERDICT + RECORD stages of one lane's triage (counters,
-        finding files, events, dedup), then the admission stage for
-        edge-novel lanes."""
+        finding files, events, dedup), then — unless ``admit`` is
+        False — the admission stage for edge-novel lanes.  The
+        generations drain passes ``admit=False`` when the DEVICE made
+        the admission decisions: it replays the ledger through
+        _admit_arm instead."""
         s = self.stats
         if status == FUZZ_CRASH:
             s.crashes += 1
@@ -550,11 +540,14 @@ class Fuzzer:
                     and new_path == 2
                     and not os.path.exists(
                         self.store.entry_path(digest))
-                    and not any(getattr(a, "md5", None) == digest
-                                for a in self.scheduler.arms))
-            if (recorded or heal) and new_path == 2 and \
+                    and not self.scheduler.holds(digest))
+            if (recorded or heal) and new_path == 2 and admit and \
                     (self.feedback or self.store is not None):
-                self._admit_arm(buf, digest)
+                self._admit_arm(
+                    buf, digest,
+                    parent=getattr(self._credit_arm, "md5", None)
+                    or "base",
+                    credit=self._credit_arm)
 
     # -- loops ----------------------------------------------------------
 
@@ -567,10 +560,14 @@ class Fuzzer:
             self.telemetry.flush()
         self.telemetry.registry.run_started()
         try:
-            self._run_batched(n_iterations)
+            if self.generations > 1:
+                self._run_generations(n_iterations)
+            else:
+                self._run_batched(n_iterations)
         finally:
             if self.watchdog is not None:
                 self.watchdog.stop()
+            self._profile_stop()
             self.telemetry.registry.run_ended()
             self.telemetry.flush()
             # the span ring exports on every run end — interrupts
@@ -676,9 +673,9 @@ class Fuzzer:
         report without blocking.  Returns (out, packed copy)."""
         if out.compact is not None:
             out = out._replace(compact=CompactReport(
-                *(_HostCopy(a) for a in out.compact)))
+                *(HostCopy(a) for a in out.compact)))
         res = out.result
-        return out, _HostCopy(pack_verdicts(res.statuses, res.new_paths,
+        return out, HostCopy(pack_verdicts(res.statuses, res.new_paths,
                                             res.unique_crashes,
                                             res.unique_hangs))
 
@@ -825,8 +822,8 @@ class Fuzzer:
             chaos_point("device_dispatch")
             packed, bufs, lens, compact = \
                 self.driver.test_batch_fused_multi(b, k)
-        ph = _HostCopy(packed)
-        idxh, sbh, slh, cnth = (_HostCopy(a) for a in compact)
+        ph = HostCopy(packed)
+        idxh, sbh, slh, cnth = (HostCopy(a) for a in compact)
         for j in range(k):
             self.stats.iterations += b
             self._fb_batches += 1
@@ -900,12 +897,17 @@ class Fuzzer:
                         or self.feedback
                 else:
                     gap = accumulate
+                # opt-in device capture: starts at the next dispatch,
+                # stops after profile_device batches
+                if self.profile_device and not self._prof_active:
+                    self._profile_start()
                 if (accumulate > 1 and gap >= accumulate
                         and self._remaining(n_iterations)
                         >= accumulate * self.batch_size
                         and mut.remaining()
                         >= accumulate * self.batch_size):
                     self._run_superbatch(accumulate, pending, depth)
+                    self._profile_count(accumulate)
                     continue
                 self._fb_batches += 1
                 lane = None
@@ -924,6 +926,7 @@ class Fuzzer:
                                    args={"batch": self._batch_seq,
                                          "n": room})
                 self._batch_seq += 1
+                self._profile_count(1)
                 pending.append((out, room, self.stats.iterations,
                                 packed, self._active_entry, lane))
                 if len(pending) >= depth:
@@ -934,3 +937,229 @@ class Fuzzer:
             # interrupt or a raise
             while pending:
                 self._triage_batch(*pending.popleft())
+
+    # -- opt-in device profiling (--profile-device) ---------------------
+
+    def _profile_start(self) -> None:
+        """Start a ``torch.profiler`` capture (CPU, and CUDA activity on
+        the card) for the next ``profile_device`` batches or
+        generations; ``_profile_stop`` writes it to
+        ``<output>/device_trace/trace.json`` as a Chrome trace, next to
+        the host ``trace.json``.  A profiler that cannot start warns
+        and the campaign goes on — like every observability path."""
+        try:
+            from torch.profiler import ProfilerActivity, profile
+            activities = [ProfilerActivity.CPU]
+            if getattr(self.driver, "device", None) is not None and \
+                    self.driver.device.type == "cuda":
+                activities.append(ProfilerActivity.CUDA)
+            ensure_dir(os.path.join(self.output_dir, "device_trace"))
+            prof = profile(activities=activities)
+            prof.start()
+            self._prof = prof
+            self._prof_active = True
+            INFO_MSG("device profiling: capturing %d batches to %s",
+                     self.profile_device,
+                     os.path.join(self.output_dir, "device_trace"))
+        except Exception as e:
+            WARNING_MSG("device profiling unavailable: %s", e)
+            self.profile_device = 0
+
+    def _profile_count(self, n: int) -> None:
+        """Count ``n`` dispatched batches (or generations) against the
+        capture; stop it once ``profile_device`` have run."""
+        if self._prof_active:
+            self.profile_device -= n
+            if self.profile_device <= 0:
+                self._profile_stop()
+
+    def _profile_stop(self) -> None:
+        if not self._prof_active:
+            return
+        self._prof_active = False
+        self.profile_device = 0
+        prof, self._prof = self._prof, None
+        path = os.path.join(self.output_dir, "device_trace", "trace.json")
+        try:
+            prof.stop()
+            prof.export_chrome_trace(path)
+            INFO_MSG("device profile written to %s", path)
+        except Exception as e:
+            WARNING_MSG("device profile stop failed: %s", e)
+
+    # -- device-resident generations (--generations) --------------------
+
+    def _drain_generations(self, out, room, done_through, _packed,
+                           _arm, lane) -> None:
+        """Drain one G-generation dispatch: materialize the bounded
+        findings ring + admission ledger (the ONLY device->host
+        transfer in this mode), replay each interesting lane through
+        the verdict/record triage stages, and replay the device's
+        ring-admission decisions through the admission stage — in
+        (generation, lane) order, exactly the order host-driven triage
+        would have seen them.  Ring overflow is counted
+        (``findings_ring_drops``) and warned, never silent.
+
+        With reseeding OFF the device made no admission decisions (the
+        ledger is empty), so edge-novel ring lanes admit through the
+        normal host path instead — otherwise a ``-fb 0`` campaign with
+        a corpus store would silently skip the write-through the
+        host-driven loop performs."""
+        tr = self.telemetry.trace
+        if tr is not None and lane is not None:
+            tr.lane = lane
+            tr.async_end("in_flight", lane)
+        timer = self.telemetry.timer
+        if self.watchdog is not None:
+            # the guarded wait below is on THIS dispatch: arm with its
+            # own generation count, not the newest dispatch's — a
+            # shrunken tail dispatch queued behind a full-G one must
+            # not clamp the full-G drain to a 1-batch deadline
+            self.watchdog.note_dispatch_scale(max(int(out.g), 1))
+        with self._wd_guard("host_transfer"), timer("host_transfer"):
+            # chaos seam INSIDE the guard: a "hang" here is what a
+            # wedged card looks like from the host
+            chaos_point("device_wait")
+            h = out.materialize()
+        reg = self.telemetry.registry
+        stored = min(int(h.fr_ptr), int(h.cap))
+        drops = int(h.fr_ptr) - stored
+        if drops > 0:
+            reg.count("findings_ring_drops", drops)
+            WARNING_MSG(
+                "generations: findings ring overflowed — %d "
+                "interesting lanes dropped this dispatch (finding "
+                "files/events under-report them; counters track the "
+                "loss; raise jit_harness gen_findings_cap)", drops)
+        statuses, new_paths, ucs, uhs = unpack_verdicts(h.fr_pack[:stored])
+        replay_adm = bool(self.feedback or self.store is not None)
+        # reseeding off => the device ledger is empty by construction:
+        # edge-novel ring lanes go through host-side admission, same
+        # gates as the host-driven loop (with reseeding on the ledger
+        # replay below owns admission and ring lanes must not)
+        admit_ring = not self._gen_reseed
+        self._credit_arm = None
+
+        def replay_lane(ei):
+            buf = h.fr_bufs[ei, :int(h.fr_len[ei])].tobytes()
+            self._triage_lane(int(statuses[ei]), int(new_paths[ei]), buf,
+                              bool(ucs[ei]), bool(uhs[ei]),
+                              admit=admit_ring)
+
+        with timer("triage"):
+            ei = 0
+            for j in range(int(h.g)):
+                gid = int(h.gen0) + j
+                # this generation's interesting lanes first (the ring
+                # is (gen, lane)-ordered), then its admissions
+                while ei < stored and int(h.fr_gen[ei]) <= gid:
+                    replay_lane(ei)
+                    ei += 1
+                if not replay_adm or not int(h.adm_raw[j]):
+                    continue
+                parent = self._ring_mirror.get(int(h.sel[j]), "base")
+                for a in range(h.adm_valid.shape[1]):
+                    if not int(h.adm_valid[j, a]):
+                        continue
+                    buf = h.adm_bufs[j, a, :int(h.adm_len[j, a])].tobytes()
+                    digest = md5_hex(buf)
+                    self._admit_arm(buf, digest, parent=parent)
+                    slot = int(h.adm_slot[j, a])
+                    self._ring_mirror[slot] = digest
+                    self.telemetry.event("ring_admit", md5=digest,
+                                         slot=slot, gen=gid, shard=0,
+                                         parent=parent)
+            while ei < stored:      # defensive: trailing rows
+                replay_lane(ei)
+                ei += 1
+        reg.gauge("gen_ring_filled", int(h.ring_filled.sum()))
+        DEBUG_MSG("generations dispatch done: %d iterations total",
+                  done_through)
+
+    def _run_generations(self, n_iterations: int) -> None:
+        """The device-resident dispatch mode: each device call runs up
+        to ``self.generations`` full generations (mutate -> execute ->
+        triage -> ring reseed, ops/generations.py) and the host only
+        drains findings + the admission ledger.  Double-buffered (a
+        dispatch is G batches long, so depth 2 keeps the card fed);
+        stands down to the host-driven loop — with a named warning —
+        when the driver/mutator can't run the generation loop (the
+        superbatch path's discipline).  With corpus feedback off,
+        device reseeding is off too and the candidate stream is
+        bit-identical to the host loop's."""
+        drv = self.driver
+        mut = drv.mutator
+        g_max = max(int(self.generations), 1)
+        reseed = bool(self.feedback)
+        self._gen_reseed = reseed
+        reg = self.telemetry.registry
+        stood_down = not drv.supports_batch_generations()
+        pending: "deque" = deque()
+        if not stood_down:
+            self._pending = pending     # watchdog-dump visibility
+            try:
+                while True:
+                    room = min(self._remaining(n_iterations),
+                               mut.remaining(), g_max * self.batch_size)
+                    if room <= 0:
+                        break
+                    if not drv.supports_batch_generations():
+                        stood_down = True   # mid-run state change
+                        break
+                    if self.profile_device and not self._prof_active:
+                        self._profile_start()
+                    n_real = min(room, self.batch_size)
+                    g_room = min(max(room // self.batch_size, 1), g_max)
+                    # tails quantize down to a power of two: the JAX
+                    # package does so to bound its recompiles, and the
+                    # generation ids a split assigns feed the seed-slot
+                    # picks, so parity with it needs the same split
+                    g_eff = g_room if g_room == g_max \
+                        else 1 << (g_room.bit_length() - 1)
+                    if self.watchdog is not None:
+                        # a G-generation dispatch legitimately waits
+                        # ~G x one batch: scale the guard deadline
+                        self.watchdog.note_dispatch_scale(g_eff)
+                    lane = None
+                    tr = self.telemetry.trace
+                    if tr is not None:
+                        lane = self._trace_lane(tr)
+                    with self._wd_guard("dispatch"):
+                        chaos_point("device_dispatch")
+                        out = drv.test_batch_generations(
+                            n_real, g_eff, pad_to=self.batch_size,
+                            reseed=reseed)
+                    self.stats.iterations += g_eff * n_real
+                    self._fb_batches += g_eff
+                    out = out.prefetch()
+                    if tr is not None:
+                        tr.async_begin(
+                            "in_flight", lane,
+                            args={"batch": self._batch_seq,
+                                  "n": g_eff * n_real,
+                                  "generations": g_eff})
+                    self._batch_seq += 1
+                    self._profile_count(g_eff)
+                    pending.append((out, g_eff * n_real,
+                                    self.stats.iterations, None, None,
+                                    lane))
+                    if len(pending) >= 2:   # double buffer
+                        self._drain_generations(*pending.popleft())
+                    reg.rate("execs", g_eff * n_real)
+                    reg.gauge("generations_per_dispatch", g_eff)
+                    reg.gauge("pipeline_depth", len(pending))
+                    self.telemetry.maybe_flush()
+                    self._persist_campaign()
+            finally:
+                while pending:
+                    self._drain_generations(*pending.popleft())
+                if self.watchdog is not None:
+                    self.watchdog.note_dispatch_scale(1)
+        if stood_down:
+            if not self._gen_warned:
+                self._gen_warned = True
+                WARNING_MSG("--generations stood down: the driver/mutator "
+                            "cannot run the device generation loop (needs "
+                            "jit_harness + a fused-capable mutator, no "
+                            "focus mask) — running the host-driven loop")
+            self._run_batched(n_iterations)

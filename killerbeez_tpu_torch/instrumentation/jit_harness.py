@@ -13,6 +13,10 @@ Engines (the reference's xla / pallas / pallas_fused):
   * ``cuda_fused``  havoc and the VM in one CUDA kernel (the flagship
                     path), with two-phase tail scheduling
 
+``run_batch_generations`` runs G whole generations per dispatch on
+the device (ops/generations.py: the ``-G`` loop), with a seed-slot
+ring that lives on the harness's device.
+
 Novelty modes:
   * ``exact``      — lanes judged sequentially (lane i sees the virgin
                      maps after lanes < i): the single-exec loop's
@@ -41,7 +45,7 @@ from ..ops.static_triage import (
 )
 from ..ops.vm_kernel import (
     auto_phase1_steps, compact_lanes, fuzz_batch_2phase,
-    run_batch as vm_run_batch,
+    run_batch as vm_run_batch, seed_ring,
 )
 from ..utils.logging import WARNING_MSG
 from ..utils.serialization import decode_array, encode_array
@@ -181,37 +185,36 @@ def _compact(statuses, new_paths, bufs, lens):
     return sel, bufs[sl], lens[sl], count
 
 
-def _fuzz_one(instrs, edge_table, u_slots, seg_id, seed_buf, seed_len,
-              base_key, its, vb, vc, vh, mem_size, max_steps, n_edges,
-              exact, stack_pow2, phase1_steps):
+def _fuzz_one(instrs, edge_table, u_slots, seg_id, seed, base_key, its,
+              vb, vc, vh, mem_size, max_steps, n_edges, exact, stack_pow2,
+              phase1_steps):
+    """One fused batch, judged: ``seed`` is the kernel's (ring, lengths,
+    slot) triple (ops/vm_kernel.seed_ring for a single seed)."""
     res, bufs, lens = fuzz_batch_2phase(
-        instrs, edge_table, seed_buf, seed_len, base_key, its, mem_size,
-        max_steps, n_edges, stack_pow2=stack_pow2,
-        phase1_steps=phase1_steps)
+        instrs, edge_table, *seed, base_key, its, mem_size, max_steps,
+        n_edges, stack_pow2=stack_pow2, phase1_steps=phase1_steps)
     return _judge(res, u_slots, seg_id, vb, vc, vh, exact) + (bufs, lens)
 
 
-def _fused_fuzz_step(instrs, edge_table, u_slots, seg_id, seed_buf,
-                     seed_len, base_key, its, vb, vc, vh, mem_size,
-                     max_steps, n_edges, exact, stack_pow2,
-                     phase1_steps=0):
+def _fused_fuzz_step(instrs, edge_table, u_slots, seg_id, seed, base_key,
+                     its, vb, vc, vh, mem_size, max_steps, n_edges, exact,
+                     stack_pow2, phase1_steps=0):
     """The flagship product path: per-lane keys fold_in(base_key,
     its), their havoc words, havoc mutation AND VM execution in one
     kernel (two-phase), static-edge triage, and the in-step compaction —
     candidates are born, run and judged on the device.  ``its`` is an
     int64 tensor of uint32 iteration numbers on the device."""
-    out = _fuzz_one(instrs, edge_table, u_slots, seg_id, seed_buf,
-                    seed_len, base_key, its, vb, vc, vh, mem_size,
-                    max_steps, n_edges, exact, stack_pow2, phase1_steps)
+    out = _fuzz_one(instrs, edge_table, u_slots, seg_id, seed, base_key,
+                    its, vb, vc, vh, mem_size, max_steps, n_edges, exact,
+                    stack_pow2, phase1_steps)
     statuses, new_paths = out[0], out[1]
     bufs, lens = out[9], out[10]
     return out + (_compact(statuses, new_paths, bufs, lens),)
 
 
-def _fused_fuzz_multi(instrs, edge_table, u_slots, seg_id, seed_buf,
-                      seed_len, base_key, its0, vb, vc, vh, mem_size,
-                      max_steps, n_edges, exact, stack_pow2, k,
-                      phase1_steps=0):
+def _fused_fuzz_multi(instrs, edge_table, u_slots, seg_id, seed, base_key,
+                      its0, vb, vc, vh, mem_size, max_steps, n_edges, exact,
+                      stack_pow2, k, phase1_steps=0):
     """K fused fuzz steps in one call, virgin maps threaded through,
     verdicts bit-packed on the device.  Step j executes iterations
     ``its0 + j * len(its0)``: the candidate streams are bit-identical
@@ -223,10 +226,9 @@ def _fused_fuzz_multi(instrs, edge_table, u_slots, seg_id, seed_buf,
     for step in range(k):
         its = (its0 + step * n) & M32
         (statuses, new_paths, uc, uh, _exit, vb, vc, vh, _counts, bufs,
-         lens) = _fuzz_one(instrs, edge_table, u_slots, seg_id, seed_buf,
-                           seed_len, base_key, its, vb, vc, vh, mem_size,
-                           max_steps, n_edges, exact, stack_pow2,
-                           phase1_steps)
+         lens) = _fuzz_one(instrs, edge_table, u_slots, seg_id, seed,
+                           base_key, its, vb, vc, vh, mem_size, max_steps,
+                           n_edges, exact, stack_pow2, phase1_steps)
         packed = pack_verdicts(statuses, new_paths, uc, uh)
         outs.append((packed, bufs, lens)
                     + _compact(statuses, new_paths, bufs, lens))
@@ -235,8 +237,7 @@ def _fused_fuzz_multi(instrs, edge_table, u_slots, seg_id, seed_buf,
 
 # options of the reference whose machinery this package has not
 # ported yet: passing one (other than at its default) is an error
-_UNPORTED = ("edges", "gen_ring_slots", "gen_findings_cap", "gen_admits",
-             "gen_fold_every", "stateful", "msgs", "n_states",
+_UNPORTED = ("edges", "gen_fold_every", "stateful", "msgs", "n_states",
              "state_reg", "learn", "grammar", "grammar_stage")
 
 ENGINES = ("torch", "cuda", "cuda_fused")
@@ -272,6 +273,13 @@ class JitHarnessInstrumentation(Instrumentation):
         "phase1_steps": "fused-engine two-phase tail scheduling: "
                         "phase-1 step budget (-1 = auto: max_steps/8 "
                         "when max_steps >= 256; 0 = single phase)",
+        "gen_ring_slots": "--generations: device seed-slot ring size "
+                          "(slot 0 = the base seed; default 32)",
+        "gen_findings_cap": "--generations: findings-ring rows per "
+                            "dispatch (0 = auto: batch/8, at least "
+                            "256, at most 16384; overflow is counted)",
+        "gen_admits": "--generations: max ring admissions per "
+                      "generation (default 8, at most slots-1)",
         **{k: "not ported yet" for k in _UNPORTED},
     }
     DEFAULTS = {"novelty": "exact", "edges": 0, "phase1_steps": -1,
@@ -334,7 +342,16 @@ class JitHarnessInstrumentation(Instrumentation):
         self.virgin_crash = self.virgin_bits.clone()
         self.virgin_tmout = self.virgin_bits.clone()
         self.total_execs = 0
-        self._lane_offsets: Dict[int, torch.Tensor] = {}
+        self._lane_offsets: Dict[Tuple[int, int], torch.Tensor] = {}
+        # --generations: the device seed-slot ring (ops/generations
+        # RingState), the (L, slots) it was built for, and the global
+        # index of the next generation
+        self._gen_ring = None
+        self._gen_ring_key = None
+        self._gen_count = 0
+        # the mutator's seed as the fused kernel's one-slot ring, made
+        # once per seed buffer: (seed tensor, seed_len, ring triple)
+        self._seed_ring = None
         self._last_unique_crash = False
         self._last_unique_hang = False
 
@@ -410,17 +427,29 @@ class JitHarnessInstrumentation(Instrumentation):
         cached from the mutator, so a dispatch copies nothing from the
         host — a pageable host copy would wait for the queued batches."""
         seed, seed_len, base_key, stack_pow2 = mutator.fused_spec()
+        seed = seed.to(self.device)
+        if self._seed_ring is None or self._seed_ring[0] is not seed or \
+                self._seed_ring[1] != int(seed_len):
+            self._seed_ring = (seed, int(seed_len),
+                               seed_ring(seed, seed_len))
+        return (self._seed_ring[2], base_key.to(self.device),
+                self._its(its), int(stack_pow2))
+
+    def _its(self, its, pad_to: int = 0) -> torch.Tensor:
+        """``its`` (a run of consecutive iteration numbers,
+        ``peek_iterations``) on the device, made there from its first
+        number so that a dispatch copies nothing from the host, padded
+        to ``pad_to`` lanes with lane 0's number."""
         n = len(its)
         start = int(its[0]) if n else 0
         if n and int(its[-1]) - start != n - 1:
             raise ValueError("fused paths take consecutive iterations")
-        ar = self._lane_offsets.get(n)
+        b = max(n, pad_to)
+        ar = self._lane_offsets.get((n, b))
         if ar is None:
-            ar = self._lane_offsets[n] = torch.arange(
-                n, dtype=torch.int64, device=self.device)
-        return (seed.to(self.device), int(seed_len),
-                base_key.to(self.device), (ar + start) & M32,
-                int(stack_pow2))
+            ar = torch.arange(b, dtype=torch.int64, device=self.device)
+            ar = self._lane_offsets[(n, b)] = torch.where(ar < n, ar, 0)
+        return (ar + start) & M32
 
     def run_batch_fused(self, mutator, its
                         ) -> Tuple[BatchResult, Any, Any, CompactReport]:
@@ -430,12 +459,11 @@ class JitHarnessInstrumentation(Instrumentation):
         device tensors."""
         n = len(its)
         self._apply_exact_gate(n)
-        seed, seed_len, base_key, its, sp = self._fused_inputs(mutator,
-                                                               its)
+        seed, base_key, its, sp = self._fused_inputs(mutator, its)
         (statuses, new_paths, uc, uh, exit_codes, vb, vc, vh, _counts,
          bufs, lens, compact) = _fused_fuzz_step(
             self._instrs, self._edge_table, self._u_slots, self._seg_id,
-            seed, seed_len, base_key, its, self.virgin_bits,
+            seed, base_key, its, self.virgin_bits,
             self.virgin_crash, self.virgin_tmout, *self._args(), sp,
             self.phase1_steps)
         self.virgin_bits, self.virgin_crash, self.virgin_tmout = vb, vc, vh
@@ -453,17 +481,89 @@ class JitHarnessInstrumentation(Instrumentation):
         advance the mutator by k*len(its)."""
         n = len(its)
         self._apply_exact_gate(n)
-        seed, seed_len, base_key, its, sp = self._fused_inputs(mutator,
-                                                               its)
+        seed, base_key, its, sp = self._fused_inputs(mutator, its)
         (vb, vc, vh, packed, bufs, lens, sel_idx, sel_bufs, sel_lens,
          counts) = _fused_fuzz_multi(
             self._instrs, self._edge_table, self._u_slots, self._seg_id,
-            seed, seed_len, base_key, its, self.virgin_bits,
+            seed, base_key, its, self.virgin_bits,
             self.virgin_crash, self.virgin_tmout, *self._args(), sp,
             int(k), self.phase1_steps)
         self.virgin_bits, self.virgin_crash, self.virgin_tmout = vb, vc, vh
         self.total_execs += int(k) * n
         return packed, bufs, lens, (sel_idx, sel_bufs, sel_lens, counts)
+
+    # -- device-resident generations (ops/generations.py) ---------------
+
+    def supports_generations(self, mutator) -> bool:
+        """True when the G-generation device loop can drive
+        ``mutator``: it needs the fused candidate spec (havoc's keyed
+        per-lane streams) and stands down while a focus mask is
+        installed (the device loop generates candidates itself and
+        would silently drop the mask).  Engine-agnostic: the torch
+        engine runs the same loop with the plain versions (the CPU
+        surface)."""
+        return (getattr(mutator, "fused_spec", None) is not None
+                and getattr(mutator, "focus_positions", None) is None)
+
+    def _ensure_gen_ring(self, seed_buf, seed_len) -> None:
+        """(Re)build the device seed-slot ring: slot 0 = the base seed,
+        pinned; the rest empty until edge-novel lanes admit.  Rebuilt
+        when the candidate buffer width changes (a new base seed shape
+        would make stale slots unloadable)."""
+        from ..ops.generations import new_ring
+        slots = max(int(self.options["gen_ring_slots"]), 2)
+        L = int(seed_buf.shape[0])
+        if self._gen_ring is not None and \
+                self._gen_ring_key == (L, slots):
+            return
+        self._gen_ring = new_ring(seed_buf.to(self.device), seed_len,
+                                  slots)
+        self._gen_ring_key = (L, slots)
+
+    def run_batch_generations(self, mutator, its, g: int,
+                              pad_to: Optional[int] = None,
+                              reseed: bool = True):
+        """Run ``g`` full generations on the device in ONE dispatch
+        (ops/generations.run_generations): mutate from the device
+        seed-slot ring, execute, triage against the device-resident
+        virgin maps, reseed the ring from edge-novel lanes, and return
+        the bounded findings ring + admission ledger as a
+        GenerationOutcome of device tensors.  Generation j consumes
+        iterations ``its + j*len(its)``; callers advance the mutator by
+        ``g*len(its)``.  Lanes are padded to ``pad_to`` with lane 0's
+        iteration (coverage no-ops).  ``reseed=False`` pins every
+        generation to slot 0 (the base seed): the candidate stream is
+        then bit-identical to the host-driven loop's."""
+        from ..ops.generations import (
+            GenerationOutcome, gen_ring_caps, run_generations,
+        )
+        n = len(its)
+        b = max(n, pad_to or 0)
+        self._apply_exact_gate(b)
+        seed_buf, seed_len, base_key, stack_pow2 = mutator.fused_spec()
+        self._ensure_gen_ring(seed_buf, seed_len)
+        salt = int(getattr(mutator, "options", {}).get("seed", 0)) & M32
+        adm_cap, cap = gen_ring_caps(
+            self.options["gen_admits"], self.options["gen_findings_cap"],
+            b, self._gen_ring_key[1])
+        (vb, vc, vh), ring, rep = run_generations(
+            self._instrs, self._edge_table, self._u_slots, self._seg_id,
+            self._gen_ring, base_key.to(self.device),
+            self._its(its, b), n, self._gen_count, salt,
+            self.virgin_bits, self.virgin_crash, self.virgin_tmout,
+            mem_size=self.program.mem_size,
+            max_steps=self.program.max_steps,
+            n_edges=self.program.n_edges, exact=self.exact,
+            stack_pow2=int(stack_pow2), g=int(g),
+            phase1_steps=self.phase1_steps, reseed=bool(reseed),
+            adm_cap=adm_cap, findings_cap=cap)
+        self.virgin_bits, self.virgin_crash, self.virgin_tmout = vb, vc, vh
+        self._gen_ring = ring
+        out = GenerationOutcome(*rep, gen0=self._gen_count, g=int(g),
+                                n_real=n, cap=cap)
+        self._gen_count += int(g)
+        self.total_execs += int(g) * n
+        return out
 
     # -- single-exec shim ----------------------------------------------
 

@@ -35,12 +35,12 @@ SIGNATURES = {
         # fuzz, ni, instrs_shared, nb, table_mode, n_edges, L
         "kbz_state_rows": (_I, _I, _I, _I, _I, _I, _I),
         # instrs, ni, instrs_shared, table, nb, table_mode, state_shared,
-        # seed, L, seed_len, base_key, its, stack_pow2, B, mem_size,
+        # ring, L, ring_lens, sel, base_key, its, stack_pow2, B, mem_size,
         # max_steps, n_edges, scratch, cols, status, exit_code, counts,
         # steps, hash, bufs, lens, stream, cfg
-        "kbz_fuzz_launch": (_P, _I, _I, _P, _I, _I, _I, _P, _I, _I, _P,
-                            _P, _I, _I, _I, _I, _I, _P, _I, _P, _P, _P,
-                            _P, _P, _P, _P, _P, _CFG),
+        "kbz_fuzz_launch": (_P, _I, _I, _P, _I, _I, _I, _P, _I, _P, _P,
+                            _P, _P, _I, _I, _I, _I, _I, _P, _I, _P, _P,
+                            _P, _P, _P, _P, _P, _P, _CFG),
         # instrs, ni, instrs_shared, table, nb, table_mode, state_shared,
         # inputs, L, lengths, lanes, n_lanes, n_threads, mem_size,
         # max_steps, n_edges, scratch, cols, status, exit_code, counts,

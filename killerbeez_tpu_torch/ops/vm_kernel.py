@@ -19,10 +19,13 @@ path hash comes back as int64 holding the uint32.  The fused kernel
 takes the mutator's base key (int64[2]) and the lanes' iteration
 numbers (int64[B], uint32 values) and draws each lane's havoc words
 itself, bit-identical to ``havoc_words_for_keys(fold_in(base_key,
-its))``.  The TPU-only devices of the reference (one-hot MXU gathers,
-lane-tile padding, int16 count narrowing) are not semantics and have
-no counterpart here: results for a lane do not depend on the batch
-around it.
+its))``.  Its seed is a row of a seed ring (u8[S, L], lengths
+int32[S]) picked by a slot index in device memory, so a caller whose
+seed the card chose (ops/generations.py) never reads it on the host;
+``seed_ring`` makes the one-slot ring of a single seed.  The TPU-only
+devices of the reference (one-hot MXU gathers, lane-tile padding,
+int16 count narrowing) are not semantics and have no counterpart here:
+results for a lane do not depend on the batch around it.
 """
 
 from __future__ import annotations
@@ -249,27 +252,50 @@ def havoc_words_for_keys(keys: torch.Tensor, stack_pow2: int = 4
     return _i32_bits(prng.bits(keys, n_words))
 
 
-def fuzz_batch_plain(instrs, edge_table, seed_buf, seed_len, base_key,
+def seed_ring(seed_buf: torch.Tensor, seed_len: int):
+    """One seed as the fused kernel's ring: (u8[1, L], int32[1] lengths,
+    int32 slot 0), on the seed's device.  The length and the slot are
+    filled on the device (``fill_`` takes its value as a kernel
+    argument), so nothing waits for the card; the ``seed_len`` range
+    is checked here, on the host."""
+    L = int(seed_buf.shape[-1])
+    _check(seed_buf.dim() == 1 and L > 0, "seed_buf must be uint8[L]")
+    seed_len = int(seed_len)
+    _check(1 <= seed_len <= L, "seed_len must be in 1..L")
+    dev = seed_buf.device
+    return (seed_buf.reshape(1, L),
+            torch.empty(1, dtype=torch.int32, device=dev).fill_(seed_len),
+            torch.zeros((), dtype=torch.int32, device=dev))
+
+
+def fuzz_batch_plain(instrs, edge_table, ring, ring_lens, sel, base_key,
                      its, mem_size, max_steps, n_edges, stack_pow2=4):
-    """The plain PyTorch version of ``kbz_fuzz_kernel``: per-lane keys
-    ``fold_in(base_key, its)``, their havoc words, ``havoc_at``, then
-    the torch VM."""
+    """The plain PyTorch version of ``kbz_fuzz_kernel``: the seed is ring
+    row ``sel`` (gathered on the device, like the kernel's load), then
+    per-lane keys ``fold_in(base_key, its)``, their havoc words,
+    ``havoc_at`` and the torch VM."""
+    slot = sel.reshape(1).long()
+    seed = ring.index_select(0, slot)[0]
+    seed_len = ring_lens.index_select(0, slot)[0]
     words = havoc_words_for_keys(prng.fold_in(base_key, its), stack_pow2)
-    bufs, lens = havoc_at(seed_buf, seed_len, words, stack_pow2)
+    bufs, lens = havoc_at(seed, seed_len, words, stack_pow2)
     res = _run_batch_impl(instrs, edge_table, bufs, lens, mem_size,
                           max_steps, n_edges)
     return res, bufs, lens
 
 
-def fuzz_batch(instrs, edge_table, seed_buf, seed_len, base_key, its,
+def fuzz_batch(instrs, edge_table, ring, ring_lens, sel, base_key, its,
                mem_size, max_steps, n_edges, stack_pow2=4):
     """Fused fuzz step (``kbz_fuzz_kernel``): lane i starts from the
     seed, applies the stacked havoc edits drawn from its key
     ``fold_in(base_key, its[i])`` and runs the mutant through the VM.
-    ``seed_buf`` uint8[L], ``base_key`` int64[2] raw key, ``its``
-    int64[B] uint32 iteration numbers.  Returns (VMResult, bufs
-    uint8[B, L], lens int32[B]).  CPU tensors take the plain version;
-    CUDA the kernel."""
+    The seed is row ``sel`` of ``ring`` (uint8[S, L]) with length
+    ``ring_lens[sel]`` (int32[S], each in 1..L); ``sel`` is an int32
+    scalar tensor on the device, read there (``seed_ring`` makes the
+    one-slot ring of a single seed).  ``base_key`` int64[2] raw key,
+    ``its`` int64[B] uint32 iteration numbers.  Returns (VMResult,
+    bufs uint8[B, L], lens int32[B]).  CPU tensors take the plain
+    version; CUDA the kernel."""
     dev = its.device
     _check(its.dim() == 1 and its.dtype == torch.int64,
            "its must be int64[B]")
@@ -277,17 +303,23 @@ def fuzz_batch(instrs, edge_table, seed_buf, seed_len, base_key, its,
            base_key.device == dev,
            "base_key must be an int64[2] raw key on its' device")
     _check(1 <= stack_pow2 <= 7, "stack_pow2 must be in 1..7")
+    _check(ring.dim() == 2 and ring.dtype == torch.uint8 and
+           ring.shape[0] > 0 and ring.shape[1] > 0 and ring.device == dev,
+           "ring must be uint8[S, L] on its' device")
+    _check(ring_lens.shape == (ring.shape[0],) and
+           ring_lens.dtype == torch.int32 and ring_lens.device == dev,
+           "ring_lens must be int32[S] on its' device")
+    _check(sel.numel() == 1 and sel.dtype == torch.int32 and
+           sel.device == dev, "sel must be one int32 on its' device")
     if dev.type == "cpu":
-        return fuzz_batch_plain(instrs, edge_table, seed_buf, seed_len,
+        return fuzz_batch_plain(instrs, edge_table, ring, ring_lens, sel,
                                 base_key, its, mem_size, max_steps,
                                 n_edges, stack_pow2)
     _check(dev.type == "cuda", f"fuzz_batch: unsupported device {dev}")
     b = its.shape[0]
-    seed = seed_buf.to(device=dev, dtype=torch.uint8).contiguous()
-    L = int(seed.shape[0])
-    _check(seed.dim() == 1 and L > 0, "seed_buf must be uint8[L]")
-    seed_len = int(seed_len)
-    _check(1 <= seed_len <= L, "seed_len must be in 1..L")
+    L = int(ring.shape[1])
+    ring = ring.contiguous()
+    ring_lens = ring_lens.contiguous()
     lay = program_layout(instrs, edge_table, n_edges, dev)
     its = its.contiguous()
     base_key = base_key.contiguous()
@@ -301,9 +333,9 @@ def fuzz_batch(instrs, edge_table, seed_buf, seed_len, base_key, its,
     rc = lib.kbz_fuzz_launch(
         lay.instrs.data_ptr(), lay.instrs.shape[0], int(lay.instrs_shared),
         lay.table.data_ptr(), lay.table.shape[1], lay.table_mode,
-        int(state_shared), seed.data_ptr(), L, seed_len,
-        base_key.data_ptr(), its.data_ptr(), stack_pow2, b, mem_size,
-        max_steps, n_edges, scratch.data_ptr(), cols,
+        int(state_shared), ring.data_ptr(), L, ring_lens.data_ptr(),
+        sel.data_ptr(), base_key.data_ptr(), its.data_ptr(), stack_pow2, b,
+        mem_size, max_steps, n_edges, scratch.data_ptr(), cols,
         res.status.data_ptr(), res.exit_code.data_ptr(),
         res.counts.data_ptr(), res.steps.data_ptr(),
         res.path_hash.data_ptr(), bufs.data_ptr(), lens.data_ptr(),
@@ -330,7 +362,7 @@ def auto_phase1_steps(max_steps: int) -> int:
     return max_steps // 8 if max_steps >= 256 else 0
 
 
-def fuzz_batch_2phase(instrs, edge_table, seed_buf, seed_len, base_key,
+def fuzz_batch_2phase(instrs, edge_table, ring, ring_lens, sel, base_key,
                       its, mem_size, max_steps, n_edges, stack_pow2=4,
                       phase1_steps=0):
     """fuzz_batch with two-phase tail scheduling.  ``phase1_steps``:
@@ -338,7 +370,7 @@ def fuzz_batch_2phase(instrs, edge_table, seed_buf, seed_len, base_key,
     if phase1_steps < 0:
         phase1_steps = auto_phase1_steps(max_steps)
     res1, bufs, lens = fuzz_batch(
-        instrs, edge_table, seed_buf, seed_len, base_key, its, mem_size,
+        instrs, edge_table, ring, ring_lens, sel, base_key, its, mem_size,
         min(phase1_steps, max_steps) if phase1_steps else max_steps,
         n_edges, stack_pow2=stack_pow2)
     if not phase1_steps or phase1_steps >= max_steps:

@@ -2,7 +2,7 @@
 
 The only host-visible symptom of a wedged card is a blocking wait
 that never returns: here, the CUDA event synchronize behind a pipeline
-batch's host copy (``fuzzer/loop.py`` ``_HostCopy.materialize``).
+batch's host copy (``ops/host_copy.py`` ``HostCopy.materialize``).
 Python cannot interrupt that wait — the GIL is released inside the
 runtime, but no exception can be delivered into it — so the only
 honest escalation is: record what was in flight, then kill the process
@@ -19,7 +19,8 @@ supervisor classifies the exit as a watchdog kill.
 The deadline scales with the measured batch time so slow targets
 don't false-positive and fast ones don't wait minutes: it is
 ``multiplier x EMA batch seconds`` clamped to ``[min_deadline,
-max_deadline]``.  EMA batch seconds prefers the telemetry registry's
+max_deadline]``, both scaled by the batches one dispatch covers
+(``note_dispatch_scale``: G for a ``-G`` dispatch).  EMA batch seconds prefers the telemetry registry's
 ``execs`` EMA rate (batch_size / rate — the same number kb-stats
 shows), falling back to the watchdog's own EMA of observed guarded
 waits until the registry has weight.
@@ -69,11 +70,17 @@ class DispatchWatchdog:
             else (lambda: os._exit(WATCHDOG_EXIT_CODE))
         self.batch_size = 0
         self.stalls = 0
+        #: batches one dispatch legitimately covers (--generations:
+        #: a G-generation dispatch waits ~G x one batch, so guards
+        #: arm G x the per-batch deadline — without this the mode
+        #: false-positives exit 86 by construction)
+        self.dispatch_scale = 1.0
         self._ema_batch_s = 0.0         # fallback when registry is cold
         self._lock = threading.Lock()
         self._armed_at: Optional[float] = None
         self._armed_deadline = 0.0
         self._armed_stage = ""
+        self._armed_scale = 1.0
         self._thread: Optional[threading.Thread] = None
         self._halt = threading.Event()
 
@@ -81,6 +88,15 @@ class DispatchWatchdog:
 
     def note_batch(self, n: int) -> None:
         self.batch_size = int(n)
+
+    def note_dispatch_scale(self, k: float) -> None:
+        """Effective batches (generations) per device dispatch: the
+        next guards arm ``k x`` the per-batch deadline — and the
+        ceiling scales too, else a large G would be clamped back to
+        a one-batch budget and false-positive anyway.  Observed waits
+        fold into the per-batch EMA divided by ``k`` so the estimate
+        stays per-batch across mode switches."""
+        self.dispatch_scale = max(float(k), 1.0)
 
     def ema_batch_seconds(self) -> float:
         """Best estimate of one batch's wall time: the registry's
@@ -95,14 +111,15 @@ class DispatchWatchdog:
 
     def deadline(self) -> float:
         est = self.ema_batch_seconds()
+        scale = self.dispatch_scale
         if est <= 0:
             # cold start: the first dispatch includes the kernel
             # build, which dwarfs any steady-state batch — grant the ceiling
             # until a real batch time has been observed (a genuinely
             # wedged FIRST dispatch still dies, just at max_deadline)
-            return self.max_deadline
-        return min(max(self.multiplier * est, self.min_deadline),
-                   self.max_deadline)
+            return self.max_deadline * scale
+        return min(max(self.multiplier * est * scale, self.min_deadline),
+                   self.max_deadline * scale)
 
     # -- arming ----------------------------------------------------------
 
@@ -121,15 +138,19 @@ class DispatchWatchdog:
             self._armed_stage = stage
             self._armed_deadline = self.deadline()
             self._armed_at = time.monotonic()
+            self._armed_scale = self.dispatch_scale
 
     def _disarm(self) -> None:
         with self._lock:
             t0 = self._armed_at
+            scale = self._armed_scale
             self._armed_at = None
         if t0 is not None:
-            # the guarded wait IS (an upper bound on) the batch time;
-            # a 0.2 alpha tracks regime changes within ~5 batches
-            waited = time.monotonic() - t0
+            # the guarded wait IS (an upper bound on) the batch time
+            # — per effective batch: a G-generation dispatch's wait
+            # divides by G so the EMA stays per-batch; a 0.2 alpha
+            # tracks regime changes within ~5 batches
+            waited = (time.monotonic() - t0) / max(scale, 1.0)
             self._ema_batch_s += 0.2 * (waited - self._ema_batch_s)
 
     def stop(self) -> None:

@@ -3,12 +3,12 @@ process, under cProfile.
 
     python -m killerbeez_tpu_torch.tools.host_profile [-b 65536] \
         [-n 1572864] [--target tlvstack_vm] [--runs 2] [--top 14] \
-        [-fb N]
+        [-fb N] [-G G]
 
 Runs ``file jit_harness havoc -m '{"seed": 3}'`` with engine cuda_fused
 and throughput novelty on the target's built-in seed — the default
 campaign (corpus feedback, stats files, events) unless ``-fb`` is
-given — ``runs`` times in one process: the first run is cold (torch's
+given, the device-resident generation loop with ``-G`` — ``runs`` times in one process: the first run is cold (torch's
 lazily loaded CUDA modules, the allocators, the kernel build), the
 later ones warm.  For each run it prints the execs/s beside the card's
 name and power limit, and for the last the functions that took the
@@ -56,6 +56,8 @@ def main(argv=None) -> int:
     p.add_argument("-fb", type=int, default=None,
                    help="the CLI's -fb (default: not given, so the "
                         "CLI's own default applies)")
+    p.add_argument("-G", type=int, default=0,
+                   help="the CLI's -G (default: the host-driven loop)")
     a = p.parse_args(argv)
     if not torch.cuda.is_available():
         print("host_profile: no CUDA card", file=sys.stderr)
@@ -67,7 +69,8 @@ def main(argv=None) -> int:
     OUT.mkdir(parents=True, exist_ok=True)
     seed = OUT / "seed.bin"
     seed.write_bytes(getattr(targets_cgc, f"{a.target}_seed")())
-    fb = [] if a.fb is None else ["-fb", str(a.fb)]
+    fb = ([] if a.fb is None else ["-fb", str(a.fb)]) + \
+        (["-G", str(a.G)] if a.G else [])
     argv = ["file", "jit_harness", "havoc", "-sf", str(seed), *fb,
             "-m", json.dumps({"seed": 3}), "-b", str(a.b), "-n", str(a.n),
             "-l", '{"level": 5}', "-o", str(OUT / "output"), "-i",
@@ -87,7 +90,7 @@ def main(argv=None) -> int:
             print(f"host_profile: the CLI exited {rc}", file=sys.stderr)
             return rc
         print(f"run {run} ({'cold' if run == 0 else 'warm'}, -fb "
-              f"{'default' if a.fb is None else a.fb}): {a.n} "
+              f"{'default' if a.fb is None else a.fb}, -G {a.G}): {a.n} "
               f"execs in {wall:.3f} s = {a.n / wall:.0f} execs/s on "
               f"{card}", flush=True)
     report = ""

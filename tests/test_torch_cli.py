@@ -89,8 +89,8 @@ def test_state_loads_across_packages(campaigns):
 @pytest.mark.parametrize("extra,flag", [
     (["--schedule", "rare-edge"], "--schedule"),
     (["--sync-manager", "m"], "--sync-manager"),
-    (["-G", "4"], "--generations"), (["--mesh", "4,2"], "--mesh"),
-    (["--crack"], "--crack"), (["--profile-device"], "--profile-device"),
+    (["--stateful"], "--stateful"), (["--mesh", "4,2"], "--mesh"),
+    (["--crack"], "--crack"), (["--learn"], "--learn"),
 ])
 def test_unported_flag_exits_2(extra, flag, tmp_path, capsys):
     argv = _argv(tmp_path / "none", tmp_path / "o", "--device", "cpu",

@@ -103,8 +103,9 @@ Out emu_out(void* status, void* exit_code, void* counts, void* steps,
 
 extern "C" int emu_fuzz(int threads, int table_mode, const void* instrs,
     int ni, int instrs_shared, int state_shared, const void* table, int nb,
-    const void* seed, int L, int seed_len, const void* base_key,
-    const void* its, int sp, int B, int mem_size, int max_steps,
+    const void* ring, int L, const void* ring_lens, const void* sel,
+    const void* base_key, const void* its, int sp, int B, int mem_size,
+    int max_steps,
     int n_edges, void* scratch, int cols, void* status, void* exit_code,
     void* counts, void* steps, void* hash, void* bufs, void* lens) {
   const Plan p = make_plan(threads, ni, instrs_shared, nb, table_mode,
@@ -116,8 +117,9 @@ extern "C" int emu_fuzz(int threads, int table_mode, const void* instrs,
       using TabT = std::remove_pointer_t<decltype(tag)>;
       (state_shared ? kbz_fuzz_kernel<TabT, true>
                     : kbz_fuzz_kernel<TabT, false>)(
-          p, (const int4*)instrs, ni, table, nb, (const uint8_t*)seed, L,
-          seed_len, (const int64_t*)base_key, (const int64_t*)its, sp, B,
+          p, (const int4*)instrs, ni, table, nb, (const uint8_t*)ring, L,
+          (const int*)ring_lens, (const int*)sel, (const int64_t*)base_key,
+          (const int64_t*)its, sp, B,
           mem_size, max_steps, n_edges, (int*)scratch, cols, out,
           (uint8_t*)bufs, (int*)lens);
     };
@@ -243,8 +245,12 @@ def _scratch(prog, cols, state_rows):
 
 
 def _fuzz(emu, prog, instrs, table, seed, n, key, its, steps, threads=64,
-          sp=4, state_shared=True, n_edges=None):
-    B, L = its.shape[0], seed.shape[0]
+          sp=4, state_shared=True, n_edges=None, ring=None):
+    """kbz_fuzz_kernel's source against the plain version, its seed the
+    one-slot ring of ``seed`` (``n`` bytes) or, given, the (ring,
+    lengths, slot) triple ``ring``."""
+    ring = ring or vk.seed_ring(seed, n)
+    B, L = its.shape[0], ring[0].shape[1]
     n_edges = prog.n_edges if n_edges is None else n_edges
     lay = vk.program_layout(instrs, table, n_edges, "cpu")
     out = _outputs(B, n_edges, zero_counts=not state_shared)
@@ -255,15 +261,24 @@ def _fuzz(emu, prog, instrs, table, seed, n, key, its, steps, threads=64,
     emu.emu_fuzz(threads, lay.table_mode, _p(lay.instrs),
                  lay.instrs.shape[0], int(lay.instrs_shared),
                  int(state_shared), _p(lay.table), lay.table.shape[1],
-                 _p(seed), L, n, _p(key), _p(its), sp, B, prog.mem_size,
-                 steps, n_edges, _p(scratch), cols, *map(_p, out), _p(bufs),
-                 _p(lens))
-    ref, rbufs, rlens = vk.fuzz_batch_plain(instrs, table, seed, n, key,
-                                            its, prog.mem_size, steps,
-                                            n_edges, sp)
+                 _p(ring[0]), L, _p(ring[1]), _p(ring[2]), _p(key), _p(its),
+                 sp, B, prog.mem_size, steps, n_edges, _p(scratch), cols,
+                 *map(_p, out), _p(bufs), _p(lens))
+    ref, rbufs, rlens = vk.fuzz_batch_plain(instrs, table, *ring, key, its,
+                                            prog.mem_size, steps, n_edges,
+                                            sp)
     _same(out, ref)
     assert torch.equal(bufs, rbufs) and torch.equal(lens, rlens)
     return lay, ref
+
+
+def _mutants(prog, instrs, table, seed, n, key, its):
+    """The plain fused step's mutants at a budget of one VM step: the
+    inputs the VM kernel's cases run."""
+    _, bufs, lens = vk.fuzz_batch_plain(instrs, table, *vk.seed_ring(seed, n),
+                                        key, its, prog.mem_size, 1,
+                                        prog.n_edges, 4)
+    return bufs, lens
 
 
 def _vm(emu, prog, instrs, table, bufs, lens, lanes, n_lanes, threads=64,
@@ -310,8 +325,7 @@ def test_fuzz_kernel_source_matches_plain(name, emu):
 @pytest.mark.parametrize("name", NAMES)
 def test_vm_kernel_source_matches_plain(name, emu):
     prog, instrs, table, seed, n, key, its = _setup(name)
-    _, bufs, lens = vk.fuzz_batch_plain(instrs, table, seed, n, key, its,
-                                        prog.mem_size, 1, prog.n_edges, 4)
+    bufs, lens = _mutants(prog, instrs, table, seed, n, key, its)
     B = bufs.shape[0]
     mask = torch.from_numpy(np.random.default_rng(1).random(B) < 0.3)
     for lanes, n_lanes in ((None, None), vk.compact_lanes(mask)):
@@ -335,9 +349,35 @@ def test_fuzz_kernel_buffer_length_not_a_word_multiple(L, emu):
                                                     L=L)
     _fuzz(emu, prog, instrs, table, seed, n, key, its, prog.max_steps,
           threads=32)
-    _, bufs, lens = vk.fuzz_batch_plain(instrs, table, seed, n, key, its,
-                                        prog.mem_size, 1, prog.n_edges, 4)
+    bufs, lens = _mutants(prog, instrs, table, seed, n, key, its)
     _vm(emu, prog, instrs, table, bufs, lens, None, None, threads=32)
+
+
+@pytest.mark.parametrize("sel", [0, 3])
+@pytest.mark.parametrize("state_shared", [True, False])
+def test_fuzz_kernel_reads_its_seed_from_the_ring(sel, state_shared, emu):
+    """The ring form: the seed is row ``sel`` of a ring u8[6, 64] whose
+    rows are random bytes, with ``lens[sel]`` (30) below L; the kernel
+    loads the row and the length on the device, with the seed staged in
+    shared memory or read from device memory."""
+    prog, instrs, table, seed, n, key, its = _setup("tlvstack_vm", B=96)
+    rng = np.random.default_rng(20 + sel)
+    L = seed.shape[0]
+    ring = torch.from_numpy(rng.integers(0, 256, (6, L), dtype=np.uint8))
+    ring[sel, :n] = seed[:n]
+    lens = torch.from_numpy(rng.integers(1, L, 6).astype(np.int32))
+    lens[sel] = n
+    triple = (ring, lens, torch.tensor(sel, dtype=torch.int32))
+    _, ref = _fuzz(emu, prog, instrs, table, seed, n, key, its,
+                   prog.max_steps, threads=32, state_shared=state_shared,
+                   ring=triple)
+    # the other rows differ, so a kernel that read another row would
+    # have disagreed with the plain version
+    other = vk.fuzz_batch_plain(instrs, table, ring, lens,
+                                torch.tensor(sel ^ 1, dtype=torch.int32),
+                                key, its, prog.mem_size, prog.max_steps,
+                                prog.n_edges, 4)[0]
+    assert not torch.equal(other.path_hash, ref.path_hash)
 
 
 def test_fuzz_kernel_scratch_in_device_memory(emu):
@@ -352,8 +392,7 @@ def test_fuzz_kernel_scratch_in_device_memory(emu):
 
 def test_vm_kernel_scratch_in_device_memory(emu):
     prog, instrs, table, seed, n, key, its = _setup("rledec_vm", B=160)
-    _, bufs, lens = vk.fuzz_batch_plain(instrs, table, seed, n, key, its,
-                                        prog.mem_size, 1, prog.n_edges, 4)
+    bufs, lens = _mutants(prog, instrs, table, seed, n, key, its)
     mask = torch.from_numpy(np.random.default_rng(4).random(160) < 0.4)
     for lanes, n_lanes in ((None, None), vk.compact_lanes(mask)):
         _vm(emu, prog, instrs, table, bufs, lens, lanes, n_lanes,
@@ -406,8 +445,7 @@ def test_long_inputs_keep_lane_state_in_device_memory(emu):
     assert not _state_shared(emu, instrs, table, prog.n_edges, 4096, False)
     _fuzz(emu, prog, instrs, table, seed, n, key, its, prog.max_steps,
           threads=32, state_shared=False)
-    _, bufs, lens = vk.fuzz_batch_plain(instrs, table, seed, n, key, its,
-                                        prog.mem_size, 1, prog.n_edges, 4)
+    bufs, lens = _mutants(prog, instrs, table, seed, n, key, its)
     mask = torch.from_numpy(np.random.default_rng(9).random(64) < 0.5)
     for lanes, n_lanes in ((None, None), vk.compact_lanes(mask)):
         _vm(emu, prog, instrs, table, bufs, lens, lanes, n_lanes,
@@ -425,8 +463,7 @@ def test_many_edges_keep_lane_state_in_device_memory(emu):
                    prog.max_steps, threads=32, state_shared=False,
                    n_edges=8000)
     assert lay.table_mode == vk.TABLE_U16
-    _, bufs, lens = vk.fuzz_batch_plain(instrs, table, seed, n, key, its,
-                                        prog.mem_size, 1, prog.n_edges, 4)
+    bufs, lens = _mutants(prog, instrs, table, seed, n, key, its)
     mask = torch.from_numpy(np.random.default_rng(10).random(64) < 0.5)
     for lanes, n_lanes in ((None, None), vk.compact_lanes(mask)):
         _vm(emu, prog, instrs, table, bufs, lens, lanes, n_lanes,
@@ -441,8 +478,7 @@ def test_instructions_and_table_in_device_memory(emu, monkeypatch):
     lay, _ = _fuzz(emu, prog, instrs, table, seed, n, key, its,
                    prog.max_steps, threads=32)
     assert lay.table_mode == vk.TABLE_DEVICE and not lay.instrs_shared
-    _, bufs, lens = vk.fuzz_batch_plain(instrs, table, seed, n, key, its,
-                                        prog.mem_size, 1, prog.n_edges, 4)
+    bufs, lens = _mutants(prog, instrs, table, seed, n, key, its)
     mask = torch.from_numpy(np.random.default_rng(6).random(96) < 0.5)
     for lanes, n_lanes in ((None, None), vk.compact_lanes(mask)):
         _vm(emu, prog, instrs, table, bufs, lens, lanes, n_lanes,
@@ -457,8 +493,7 @@ def test_vm_kernel_lane_lists(listed, emu):
     with more entries than the persistent grid has threads (threads
     take slot s + grid * blockDim)."""
     prog, instrs, table, seed, n, key, its = _setup("tlvstack_vm", B=300)
-    _, bufs, lens = vk.fuzz_batch_plain(instrs, table, seed, n, key, its,
-                                        prog.mem_size, 1, prog.n_edges, 4)
+    bufs, lens = _mutants(prog, instrs, table, seed, n, key, its)
     rng = np.random.default_rng(5)
     B = bufs.shape[0]
     if listed == "none":
@@ -486,8 +521,7 @@ def test_fixedform_reads_its_table_from_device_memory(emu):
     lay, _ = _fuzz(emu, prog, instrs, table, seed, n, key, its,
                    prog.max_steps, threads=32)
     assert lay.table_mode == vk.TABLE_DEVICE and lay.instrs_shared
-    _, bufs, lens = vk.fuzz_batch_plain(instrs, table, seed, n, key, its,
-                                        prog.mem_size, 1, prog.n_edges, 4)
+    bufs, lens = _mutants(prog, instrs, table, seed, n, key, its)
     mask = torch.from_numpy(np.random.default_rng(2).random(96) < 0.5)
     for lanes, n_lanes in ((None, None), vk.compact_lanes(mask)):
         _vm(emu, prog, instrs, table, bufs, lens, lanes, n_lanes,
@@ -506,14 +540,15 @@ def test_u16_edge_table_path(emu):
     bufs = torch.zeros((64, 64), dtype=torch.uint8)
     lens = torch.zeros(64, dtype=torch.int32)
     scratch, cols = _scratch(prog, 64, 0)
+    ring = vk.seed_ring(seed, n)
     emu.emu_fuzz(32, vk.TABLE_U16, _p(lay.instrs), lay.instrs.shape[0], 1,
-                 1, _p(lay.table), lay.table.shape[1], _p(seed), 64, n,
-                 _p(key), _p(its), 4, 64, prog.mem_size, prog.max_steps,
-                 prog.n_edges, _p(scratch), cols, *map(_p, out), _p(bufs),
-                 _p(lens))
-    ref, rbufs, rlens = vk.fuzz_batch_plain(instrs, table, seed, n, key,
-                                            its, prog.mem_size,
-                                            prog.max_steps, prog.n_edges)
+                 1, _p(lay.table), lay.table.shape[1], _p(ring[0]), 64,
+                 _p(ring[1]), _p(ring[2]), _p(key), _p(its), 4, 64,
+                 prog.mem_size, prog.max_steps, prog.n_edges, _p(scratch),
+                 cols, *map(_p, out), _p(bufs), _p(lens))
+    ref, rbufs, rlens = vk.fuzz_batch_plain(instrs, table, *ring, key, its,
+                                            prog.mem_size, prog.max_steps,
+                                            prog.n_edges)
     _same(out, ref)
     assert torch.equal(bufs, rbufs) and torch.equal(lens, rlens)
 

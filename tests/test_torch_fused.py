@@ -47,6 +47,11 @@ def _tables(prog):
     return (torch.as_tensor(prog.instrs), torch.as_tensor(prog.edge_table))
 
 
+def _ring(seed_buf, seed_len):
+    """The fused kernel's one-slot seed ring of a numpy seed."""
+    return vm_kernel.seed_ring(torch.from_numpy(seed_buf), seed_len)
+
+
 @pytest.mark.parametrize("name", ["test", "tlvstack_vm"])
 def test_fused_step_matches_havoc_then_vm(name):
     prog = targets.get_target(name)
@@ -58,7 +63,7 @@ def test_fused_step_matches_havoc_then_vm(name):
                   bufs_r, lens_r, prog.mem_size, prog.max_steps,
                   prog.n_edges, False)
     res, bufs, lens = vm_kernel.fuzz_batch(
-        *_tables(prog), torch.from_numpy(seed_buf), seed_len, prng.key(3),
+        *_tables(prog), *_ring(seed_buf, seed_len), prng.key(3),
         torch.from_numpy(its), prog.mem_size, prog.max_steps, prog.n_edges,
         stack_pow2=sp)
     np.testing.assert_array_equal(np.asarray(bufs_r), bufs.numpy())
@@ -75,8 +80,8 @@ def test_two_phase_equals_single_phase(phase1):
     seed_buf, seed_len = _seed("tlvstack_vm", 64)
     B = 256
     its = torch.arange(B, dtype=torch.int64)
-    args = (*_tables(prog), torch.from_numpy(seed_buf), seed_len,
-            prng.key(5), its, prog.mem_size, prog.max_steps, prog.n_edges)
+    args = (*_tables(prog), *_ring(seed_buf, seed_len), prng.key(5), its,
+            prog.mem_size, prog.max_steps, prog.n_edges)
     one, b1, l1 = vm_kernel.fuzz_batch(*args, stack_pow2=4)
     two, b2, l2 = vm_kernel.fuzz_batch_2phase(*args, stack_pow2=4,
                                               phase1_steps=phase1)
@@ -113,13 +118,13 @@ def test_fused_step_draws_no_havoc_words(monkeypatch):
     its0 = torch.arange(40, 72, dtype=torch.int64)
     jit_harness._fused_fuzz_multi(
         *_tables(prog), torch.from_numpy(u_slots), torch.from_numpy(seg_id),
-        torch.from_numpy(seed_buf), seed_len, key, its0, vb, vb.clone(),
-        vb.clone(), prog.mem_size, prog.max_steps, prog.n_edges, False, 4,
-        2, phase1_steps=-1)
+        _ring(seed_buf, seed_len), key, its0, vb, vb.clone(), vb.clone(),
+        prog.mem_size, prog.max_steps, prog.n_edges, False, 4, 2,
+        phase1_steps=-1)
     assert len(calls) == 2
     for j, args in enumerate(calls):
-        assert args[4] is key
-        assert torch.equal(args[5], its0 + j * 32)
+        assert args[5] is key
+        assert torch.equal(args[6], its0 + j * 32)
         assert not any(torch.is_tensor(a) and a.dim() == 2 and
                        a.shape[1] == 136 for a in args)
 
@@ -144,7 +149,7 @@ def test_fused_multi_matches_sequential_jax_steps(exact):
 
     out = jit_harness._fused_fuzz_multi(
         *_tables(prog), torch.from_numpy(u_slots),
-        torch.from_numpy(seg_id), torch.from_numpy(seed_buf), seed_len,
+        torch.from_numpy(seg_id), _ring(seed_buf, seed_len),
         prng.key(seed), torch.from_numpy(its0), torch.from_numpy(vb),
         torch.from_numpy(vc), torch.from_numpy(vh), prog.mem_size,
         prog.max_steps, prog.n_edges, exact, sp, K, phase1_steps=-1)
@@ -230,7 +235,10 @@ def test_fused_inputs_are_made_on_the_device():
     assert bytes(mut.fused_spec()[0].numpy()[:4]) == b"WXYZ"
 
     start = 2**32 - 2
-    _, _, _, its, sp = instr._fused_inputs(mut, np.arange(start, start + 4))
+    ring, _, its, sp = instr._fused_inputs(mut, np.arange(start, start + 4))
     assert its.tolist() == [2**32 - 2, 2**32 - 1, 0, 1] and sp == 4
+    assert ring[0].numpy()[0, :4].tobytes() == b"WXYZ"
+    assert ring[1].tolist() == [4] and int(ring[2]) == 0
+    assert instr._fused_inputs(mut, np.arange(4))[0] is ring
     with pytest.raises(ValueError, match="consecutive"):
         instr._fused_inputs(mut, np.array([0, 2, 3]))

@@ -49,19 +49,44 @@ def test_fuzz_kernel_matches_plain(name, cuda):
     L = 128 if name == "fixedform_vm" else 64
     prog, instrs, table, seed, n, key, its = _setup(name, cuda, L=L)
     for steps in (prog.max_steps, 16):
-        args = (instrs, table, seed, n, key, its, prog.mem_size, steps,
-                prog.n_edges, 4)
+        args = (instrs, table, *vk.seed_ring(seed, n), key, its,
+                prog.mem_size, steps, prog.n_edges, 4)
         res, bufs, lens = vk.fuzz_batch(*args)
         ref, rbufs, rlens = vk.fuzz_batch_plain(*args)
         _equal(list(res) + [bufs, lens], list(ref) + [rbufs, rlens])
+
+
+@pytest.mark.parametrize("sel", [0, 3])
+def test_fuzz_kernel_ring_form_matches_plain(sel, cuda):
+    """The seed as row ``sel`` of a ring of six random rows, its length
+    (30) below L = 64, read by the kernel on the device."""
+    prog, instrs, table, seed, n, key, its = _setup("tlvstack_vm", cuda)
+    gen = torch.Generator().manual_seed(40 + sel)
+    ring = torch.randint(0, 256, (6, 64), dtype=torch.uint8, generator=gen)
+    lens = torch.randint(1, 64, (6,), dtype=torch.int32, generator=gen)
+    ring, lens = ring.to(cuda), lens.to(cuda)
+    ring[sel] = seed
+    lens[sel] = n
+    sel_t = torch.tensor(sel, dtype=torch.int32, device=cuda)
+    for steps in (prog.max_steps, 16):
+        args = (instrs, table, ring, lens, sel_t, key, its, prog.mem_size,
+                steps, prog.n_edges, 4)
+        got = vk.fuzz_batch(*args)
+        ref = vk.fuzz_batch_plain(*args)
+        _equal(list(got[0]) + list(got[1:]), list(ref[0]) + list(ref[1:]))
+        # the same seed given alone: the same lanes
+        one = vk.fuzz_batch(instrs, table, *vk.seed_ring(seed, n), key, its,
+                            prog.mem_size, steps, prog.n_edges, 4)
+        _equal(list(one[0]) + list(one[1:]), list(got[0]) + list(got[1:]))
 
 
 @pytest.mark.parametrize("name", TARGETS)
 def test_vm_kernel_matches_plain(name, cuda):
     L = 128 if name == "fixedform_vm" else 64
     prog, instrs, table, seed, n, key, its = _setup(name, cuda, L=L)
-    _, bufs, lens = vk.fuzz_batch(instrs, table, seed, n, key, its,
-                                  prog.mem_size, 1, prog.n_edges, 4)
+    _, bufs, lens = vk.fuzz_batch(instrs, table, *vk.seed_ring(seed, n),
+                                  key, its, prog.mem_size, 1, prog.n_edges,
+                                  4)
     _both_kernels(instrs, table, bufs, lens, prog.mem_size,
                   prog.max_steps, prog.n_edges, cuda)
 
@@ -88,7 +113,7 @@ def test_lane_state_in_device_memory(shape, cuda):
     prog, instrs, table, seed, n, key, its = _setup("tlvstack_vm", cuda,
                                                     L=L)
     n_edges = n_edges or prog.n_edges
-    args = (instrs, table, seed, n, key, its, prog.mem_size,
+    args = (instrs, table, *vk.seed_ring(seed, n), key, its, prog.mem_size,
             prog.max_steps, n_edges, 4)
     res, bufs, lens = vk.fuzz_batch(*args)
     assert not vk.LAST_CONFIG["kbz_fuzz_kernel"]["lane_state_shared"]
@@ -105,7 +130,7 @@ def test_instructions_and_table_in_device_memory(cuda, monkeypatch):
     prog, instrs, table, seed, n, key, its = _setup("tlvstack_vm", cuda)
     lay = vk.program_layout(instrs, table, prog.n_edges, cuda)
     assert lay.table_mode == vk.TABLE_DEVICE and not lay.instrs_shared
-    args = (instrs, table, seed, n, key, its, prog.mem_size,
+    args = (instrs, table, *vk.seed_ring(seed, n), key, its, prog.mem_size,
             prog.max_steps, prog.n_edges, 4)
     res, bufs, lens = vk.fuzz_batch(*args)
     ref, rbufs, rlens = vk.fuzz_batch_plain(*args)
@@ -133,7 +158,7 @@ def test_fused_dispatch_never_waits_for_the_card(cuda, monkeypatch):
     its pipeline of batches in flight.  Nor does it draw havoc words
     (``prng.bits``): the fused kernel computes each lane's own."""
     from killerbeez_tpu_torch.drivers.factory import driver_factory
-    from killerbeez_tpu_torch.fuzzer.loop import _HostCopy
+    from killerbeez_tpu_torch.ops.host_copy import HostCopy
     from killerbeez_tpu_torch.instrumentation.jit_harness import (
         JitHarnessInstrumentation,
     )
@@ -147,7 +172,7 @@ def test_fused_dispatch_never_waits_for_the_card(cuda, monkeypatch):
 
     def dispatch():
         packed, _bufs, _lens, compact = drv.test_batch_fused_multi(2048, 2)
-        return [_HostCopy(t) for t in (packed, *compact)]
+        return [HostCopy(t) for t in (packed, *compact)]
 
     dispatch()                   # first use: the kernel build, allocations
     torch.cuda.synchronize()
@@ -209,3 +234,37 @@ def test_rotation_never_waits_for_the_card(cuda, tmp_path):
     assert fz.scheduler.rotations == 4
     assert len(seeds) >= 2 and mut.max_length == width
     assert mut.iteration == 40 * 2048
+
+
+def test_generations_dispatch_never_waits_for_the_card(cuda):
+    """A -G 4 dispatch (four generations, each picking its seed slot on
+    the card, the fused kernel reading it from the device ring, triage,
+    the findings-ring append and the ring admission) and the start of
+    its report's host copies only enqueue work: nothing waits for the
+    card (a host sync raises under sync debug mode "error")."""
+    from killerbeez_tpu_torch.drivers.factory import driver_factory
+    from killerbeez_tpu_torch.instrumentation.jit_harness import (
+        JitHarnessInstrumentation,
+    )
+    from killerbeez_tpu_torch.mutators.randomized import HavocMutator
+
+    instr = JitHarnessInstrumentation(
+        '{"target": "tlvstack_vm", "engine": "cuda_fused", '
+        '"novelty": "throughput"}')
+    mut = HavocMutator('{"seed": 3}', targets_cgc.tlvstack_vm_seed())
+    drv = driver_factory("file", None, instr, mut)
+    # first use: the kernel build, allocations; the ring fills
+    drv.test_batch_generations(2048, 4, pad_to=2048).materialize()
+    torch.cuda.synchronize()
+    before = dict(vk.LAUNCHES)
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        out = drv.test_batch_generations(2000, 4, pad_to=2048).prefetch()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    h = out.materialize()
+    assert h.g == 4 and h.gen0 == 4 and h.n_real == 2000
+    assert vk.LAUNCHES["kbz_fuzz_kernel"] == before["kbz_fuzz_kernel"] + 4
+    assert vk.LAUNCHES["kbz_vm_kernel"] == before["kbz_vm_kernel"] + 4
+    assert int(h.ring_filled.sum()) > 1 and int(h.fr_ptr) > 0
+    assert mut.iteration == 2048 * 4 + 2000 * 4
