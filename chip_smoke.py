@@ -67,10 +67,31 @@ It builds the CUDA kernels from ``killerbeez_tpu_torch/csrc`` and:
      per generation by stage at the flagship shape (slot pick, phase
      1, phase 2, triage, packing, ring append) and the device's idle
      share over one ``-G 16`` dispatch;
-  6. prints one ``{"kernels": [...]}`` line (launches: the first
-     host-driven and the first ``-G 16`` flagship run together), then
-     the card line, then the result line ``{"ok": true, "device":
-     {...}}`` last.  Each phase's wall time is printed as it ends.
+  6. the mesh (``--mesh dp,mp``, parallel/): (a) in this process, a
+     dp = 4, mp = 2 mesh on ``["cuda:0"] * 8`` (engines cuda and
+     cuda_fused) against ``["cpu"] * 8`` (the plain path) on cgc_like
+     with 64 lanes per shard and L = 32: three steps, a K = 8
+     superbatch and -G 4 dispatches folding every 1 and 2 generations,
+     reseeding on and off — every output, compact report, ring and
+     virgin map equal; (b) the CLI at ``--mesh 1,1 -b 1024``, card
+     against CPU, host-driven at ``-n 12288 -fb 0`` and at ``-G 4 -n
+     32768`` with the default ``-fb`` (md5 sets, ``-isd``, ring
+     admissions, counters), and ``--device cpu --mesh 4,2`` once; (c)
+     the flagship at ``--mesh 1,1 -b 65536`` (cuda_fused, default
+     ``-fb``), host-driven and at ``-G 16``, in turns with the
+     host-driven single-device ``-fb 0`` flagship (exit 0, findings,
+     ``kbz_fuzz_kernel`` launches, ``mesh_dp`` in ``stats.jsonl``,
+     each execs/s), and one short run with engine cuda, which must
+     launch ``kbz_vm_kernel`` over all lanes; (d) device ms per mesh
+     step by stage (mutate+execute, triage, fold, compaction) at
+     --mesh 1,1 x 65536 lanes and at 4,2 x 16384 lanes per shard on
+     one card;
+  7. prints one ``{"kernels": [...]}`` line (launches: the first
+     host-driven, the first ``-G 16`` and the first mesh flagship runs
+     together; the all-lanes ``kbz_vm_kernel`` row from the mesh's
+     cuda-engine run), then the card line, then the result line
+     ``{"ok": true, "device": {...}}`` last.  Each phase's wall time is
+     printed as it ends.
 
 Any failure raises: the script exits non-zero and prints no result.
 Outputs go to build/chip_smoke/ in the checkout.
@@ -106,6 +127,8 @@ STACK_POW2 = 4
 #: default campaign rotates 11 times; its first rotations pick the base
 #: seed while the base still finds edges, later ones admitted arms
 FLAGSHIP_BATCHES = 96
+#: the mesh flagship's run length (--mesh 1,1, phase 6c)
+MESH_BATCHES = 48
 MUT_SEED = 3
 HBM_BYTES_PER_S = 3.35e12
 INT32_OPS_PER_S = 132 * 64 * 1.98e9
@@ -292,19 +315,20 @@ def stats_counters(out: Path):
             if k.strip() in keep}
 
 
-def flagship(name, *args):
-    """The main path's CLI run; returns (launches, execs/s, output
-    dir)."""
-    n_iter = FLAGSHIP_BATCHES * B
+def flagship(name, *args, batches=FLAGSHIP_BATCHES, engine="cuda_fused",
+             need=("kbz_fuzz_kernel", "kbz_vm_kernel")):
+    """The main path's CLI run; ``need`` names the kernels it must
+    launch.  Returns (launches, execs/s, output dir)."""
+    n_iter = batches * B
     log, out = run_cli(
         ["-b", str(B), "-n", str(n_iter), "-i",
-         json.dumps({"target": "tlvstack_vm", "engine": "cuda_fused",
+         json.dumps({"target": "tlvstack_vm", "engine": engine,
                      "novelty": "throughput"}), *args], name)
     m = re.search(r"kernel launches: (\{.*\})", log)
     if not m:
         raise AssertionError("the CLI printed no kernel launch counts")
     launches = json.loads(m.group(1))
-    if min(launches.values()) <= 0:
+    if min(launches[k] for k in need) <= 0:
         raise AssertionError(f"a kernel never launched on the main path "
                              f"({name}): {launches}")
     eps = re.search(r"Ran (\d+) iterations in ([0-9.]+) seconds "
@@ -592,6 +616,237 @@ def gen_stages(card):
           f"{statistics.median(hosts):.3f} ms, stages x 16 "
           f"{g * per_gen:.3f} ms, device idle share {idle:.3f}", flush=True)
     return stages, wall, idle
+
+
+# -- the mesh (--mesh dp,mp) -------------------------------------------
+
+MESH_SEED = b"CG\x02\x04\x05\x41xx"   # cgc_like's seed
+
+
+def mesh_run(devices, engine):
+    """A dp = 4, mp = 2 mesh on ``devices`` (cgc_like, 64 lanes per
+    shard, L = 32): three steps (the third past 2**32), a K = 8
+    superbatch, then -G 4 dispatches folding every 1 and every 2
+    generations with reseeding on and off.  Returns {label: outputs as
+    CPU tensors}."""
+    from killerbeez_tpu_torch.models.targets import get_target
+    from killerbeez_tpu_torch.parallel import (
+        make_mesh, make_sharded_fuzz_step, make_sharded_generations,
+        sharded_gen_ring_init, sharded_state_init,
+    )
+    prog = get_target("cgc_like")
+    mesh = make_mesh(4, 2, devices)
+    bpd, L = 64, 32
+    seed = torch.zeros(L, dtype=torch.uint8)
+    seed[:len(MESH_SEED)] = torch.tensor(list(MESH_SEED), dtype=torch.uint8)
+    seed = seed.to(mesh.devices[0][0])
+    step = make_sharded_fuzz_step(prog, mesh, bpd, L, engine=engine,
+                                  seed=MUT_SEED)
+    st = sharded_state_init(mesh, prog.map_size)
+
+    def maps():
+        return [st.full_map(m) for m in MAPS]
+    out = {}
+    for i, base in enumerate((0, 256, (1 << 32) + 512)):
+        st, *r = step(st, seed, len(MESH_SEED), base)
+        out[f"step {i}"] = r[:7] + list(r[7]) + maps()
+    st, *r = step.multi(st, seed, len(MESH_SEED), 1024, 8)
+    out["superbatch"] = r[:3] + list(r[3]) + maps()
+    dispatch = make_sharded_generations(
+        prog, mesh, bpd, L, engine=engine, seed=MUT_SEED, salt=MUT_SEED,
+        adm_cap=7, findings_cap=64)
+    # the generations start from fresh maps, so the rings admit
+    st = sharded_state_init(mesh, prog.map_size)
+    ring = sharded_gen_ring_init(mesh, seed, len(MESH_SEED), 8, L)
+    gen0 = 0
+    for fold in (1, 2):
+        for reseed in (True, False):
+            st, ring, rep = dispatch(st, ring, 4096 + gen0 * 256, gen0, 4,
+                                     reseed=reseed, fold_every=fold)
+            out[f"-G 4 fold {fold} reseed {reseed}"] = list(rep) + [
+                ring.field(f) for f in ("bufs", "lens", "filled", "hits",
+                                        "finds", "ptr")] + maps()
+            gen0 += 4
+    return {k: [t.cpu() for t in v] for k, v in out.items()}
+
+
+def mesh_parity():
+    """Phase 6a: the dp = 4, mp = 2 mesh on one card (engines cuda and
+    cuda_fused) against the plain path on eight CPU shards; every
+    output equal (tolerance: none).  Returns the card runs' launches."""
+    from killerbeez_tpu_torch.ops import vm_kernel as vk
+    ref = mesh_run(["cpu"] * 8, "torch")
+    before = dict(vk.LAUNCHES)
+    for engine in ("cuda", "cuda_fused"):
+        got = mesh_run(["cuda:0"] * 8, engine)
+        for label, outs in got.items():
+            for i, (a, b) in enumerate(zip(outs, ref[label])):
+                if a.shape != b.shape or not torch.equal(
+                        a.to(torch.int64), b.to(torch.int64)):
+                    raise AssertionError(f"mesh 4x2 ({engine}): card and "
+                                         f"CPU differ in {label}, output "
+                                         f"{i}")
+    launches = {k: vk.LAUNCHES[k] - before[k] for k in before}
+    last = ref["-G 4 fold 2 reseed False"]
+    filled = int(ref["-G 4 fold 1 reseed True"][15].sum())   # ring filled
+    print(f"mesh 4x2 parity (cgc_like, 64 lanes per shard): card == CPU "
+          f"for engines cuda and cuda_fused over 3 steps, a K = 8 "
+          f"superbatch and 4 x -G 4 dispatches (findings rings "
+          f"{[int(p) for p in last[5]]} rows, ring filled {filled} of "
+          f"32); launches {launches}", flush=True)
+    if filled <= 4 or launches["kbz_fuzz_kernel"] <= 0 or \
+            launches["kbz_vm_kernel_all"] <= 0:
+        raise AssertionError("mesh parity: no ring admission or a kernel "
+                             "never launched")
+    return launches
+
+
+def mesh_cli_parity():
+    """Phase 6b: the CLI at --mesh 1,1 -b 1024 on the card (cuda_fused)
+    against the CPU (torch): host-driven at -fb 0, and -G 4 at the
+    default -fb; then --device cpu --mesh 4,2 once."""
+    got = {}
+    for mode, extra in (("host", ["-n", "12288", "-fb", "0"]),
+                        ("gen", ["-n", "32768", "-G", "4"])):
+        for dev, engine in (("cuda", "cuda_fused"), ("cpu", "torch")):
+            name = f"mesh_{mode}_{dev}"
+            state = OUT / f"{name}.isd"
+            _, out = run_cli(["--mesh", "1,1", "-b", "1024", *extra,
+                              "--device", dev, "-isd", str(state), "-i",
+                              json.dumps({**GEN_IOPTS, "engine": engine})],
+                             name)
+            got[(mode, dev)] = {"findings": findings(out),
+                                "isd": state.read_text(),
+                                "admits": ring_admits(out),
+                                "counters": stats_counters(out)}
+        c, p = got[(mode, "cuda")], got[(mode, "cpu")]
+        if c != p:
+            raise AssertionError(f"--mesh 1,1 ({mode}): card and CPU "
+                                 f"differ in {[k for k in c if c[k] != p[k]]}")
+    if not got[("gen", "cuda")]["admits"]:
+        raise AssertionError("--mesh 1,1 -G 4: no ring admission")
+    (OUT / "mesh_seed.bin").write_bytes(MESH_SEED)
+    _, out = run_cli(["--mesh", "4,2", "--device", "cpu", "-b", "256", "-n",
+                      "2048", "-sf", str(OUT / "mesh_seed.bin"), "-i",
+                      json.dumps({"target": "cgc_like"})], "mesh_cpu_4x2")
+    found = findings(out)
+    if not found["new_paths"]:
+        raise AssertionError("--device cpu --mesh 4,2 found nothing")
+    print(f"mesh CLI parity: --mesh 1,1 card == CPU host-driven -fb 0 "
+          f"({len(got[('host', 'cuda')]['findings']['new_paths'])} new "
+          f"paths) and -G 4 at the default -fb "
+          f"({len(got[('gen', 'cuda')]['admits'])} ring admissions); "
+          f"--device cpu --mesh 4,2: {len(found['new_paths'])} new paths, "
+          f"{len(found['crashes'])} crashes", flush=True)
+
+
+def mesh_flagship(name, *args):
+    """A --mesh 1,1 flagship run (cuda_fused); checks the mesh gauge.
+    Returns flagship()'s (launches, execs/s)."""
+    launches, rate, out = flagship(name, "--mesh", "1,1", *args,
+                                   batches=MESH_BATCHES,
+                                   need=("kbz_fuzz_kernel",))
+    gauges = [json.loads(line).get("gauges", {}) for line in
+              (out / "stats.jsonl").read_text().splitlines()
+              if line.strip()]
+    if not any(g.get("mesh_dp") == 1 for g in gauges):
+        raise AssertionError(f"{name}: no mesh_dp gauge in stats.jsonl")
+    if "-G" in args and not ring_admits(out):
+        raise AssertionError(f"{name}: no ring_admit event")
+    return launches, rate
+
+
+def mesh_stages(card):
+    """Phase 6d: device ms per mesh step by stage on tlvstack_vm —
+    mutate+execute (single-phase kbz_fuzz_kernel), triage (every mp
+    shard's novelty, the row's dedup, the clears), the dp fold and the
+    compaction — at --mesh 1,1 x 65536 lanes and at 4,2 x 16384 lanes
+    per shard on one card (the same global batch).  Each stage is
+    summed over the mesh's rows and timed behind a hold of the card
+    long enough for the host to enqueue it.  Then one whole step, not
+    held: its event span, the host's enqueue time and the device's
+    idle share, 1 - (the stages' device time) / (the span)."""
+    from killerbeez_tpu_torch.models.targets import get_target
+    from killerbeez_tpu_torch.models.targets_cgc import tlvstack_vm_seed
+    from killerbeez_tpu_torch.ops import vm_kernel as vk
+    from killerbeez_tpu_torch.parallel import distributed as ds
+    from killerbeez_tpu_torch.tools import timing
+    prog = get_target("tlvstack_vm")
+    sb = tlvstack_vm_seed()
+    seed = torch.zeros(64, dtype=torch.uint8)
+    seed[:len(sb)] = torch.tensor(list(sb), dtype=torch.uint8)
+    seed = seed.cuda()
+    hold = timing.HOLD_CYCLES
+    # ~250 ms: the host takes ~120 ms to enqueue a 4 x 2 mesh step
+    timing.HOLD_CYCLES = 500_000_000
+    result = {}
+    try:
+        for n_dp, n_mp in ((1, 1), (4, 2)):
+            mesh = ds.make_mesh(n_dp, n_mp, ["cuda:0"] * (n_dp * n_mp))
+            bpd = B // n_dp
+            kern = ds._ShardKernels(prog, mesh, bpd, 64, engine="cuda_fused",
+                                    seed=MUT_SEED)
+            step = ds.make_sharded_fuzz_step(prog, mesh, bpd, 64,
+                                             engine="cuda_fused",
+                                             seed=MUT_SEED)
+            st = ds.sharded_state_init(mesh, prog.map_size)
+            for i in range(2):                       # a warm map
+                st = step(st, seed, len(sb), i * B)[0]
+            maps = ds._row_maps(mesh, st)
+            ring = vk.seed_ring(seed, len(sb))
+            key = kern.base_key(2 * B, 0, seed.device)
+            rows = [kern.mutate_exec(d, *ring, key) for d in range(n_dp)]
+            stats = [torch.where(r[0].status == 3, 1, r[0].status).to(
+                torch.int32) for r in rows]
+            tri = [kern.triage_row(d, *(maps[k][d] for k in range(3)),
+                                   rows[d][0].counts, stats[d])
+                   for d in range(n_dp)]
+
+            def compaction():
+                for d in range(n_dp):
+                    fl = (stats[d] != 0) | (tri[d][0] > 0)
+                    sel = vk.compact_lanes(fl)[0][:1024].long()
+                    _ = (rows[d][1][sel], rows[d][2][sel])
+            stages = {
+                "mutate+execute": timing.timed(lambda: [
+                    kern.mutate_exec(d, *ring, key) for d in range(n_dp)],
+                    3),
+                "triage": timing.timed(lambda: [
+                    kern.triage_row(d, *(maps[k][d] for k in range(3)),
+                                    rows[d][0].counts, stats[d])
+                    for d in range(n_dp)], 3),
+                "fold": timing.timed(lambda: ds._fold_maps(
+                    mesh, [[list(t[3 + k]) for t in tri]
+                           for k in range(3)]), 3),
+                "compaction": timing.timed(compaction, 3),
+            }
+            # one whole step, not held: the span between CUDA events
+            # recorded before and after it is enqueued, the host's
+            # enqueue time, and the device's idle share of the span
+            spans, hosts = [], []
+            for _ in range(3):
+                torch.cuda.synchronize()
+                e0, e1 = (torch.cuda.Event(enable_timing=True)
+                          for _ in range(2))
+                e0.record()
+                t0 = time.perf_counter()
+                step(st, seed, len(sb), 2 * B)
+                hosts.append((time.perf_counter() - t0) * 1e3)
+                e1.record()
+                e1.synchronize()
+                spans.append(e0.elapsed_time(e1))
+            span, enqueue = statistics.median(spans), statistics.median(hosts)
+            device = sum(stages.values())
+            result[(n_dp, n_mp)] = (stages, span, enqueue)
+            print(f"mesh step stage breakdown --mesh {n_dp},{n_mp} x {bpd} "
+                  f"lanes per shard [ms per step, median, {card}]: "
+                  + ", ".join(f"{k} {v:.3f}" for k, v in stages.items())
+                  + f"; device total {device:.3f}; one step: event span "
+                  f"{span:.3f}, host enqueue {enqueue:.3f}, device idle "
+                  f"share {1.0 - device / span:.3f}", flush=True)
+    finally:
+        timing.HOLD_CYCLES = hold
+    return result
 
 
 class Phases:
@@ -921,13 +1176,56 @@ def main() -> int:
     phases.start("5d (-G stages, idle share)")
     gen_stages(card)
 
-    # -- phase 6: the record -------------------------------------------
-    phases.start("6 (record)")
+    # -- phase 6: the mesh (--mesh dp,mp) ------------------------------
+    phases.start("6a (mesh 4x2 parity on one card)")
+    mesh_parity()
+    phases.start("6b (mesh CLI parity)")
+    mesh_cli_parity()
+    # the --mesh 1,1 flagship host-driven and at -G 16 (default -fb),
+    # in turns with the single-device host-driven -fb 0 flagship:
+    # mesh, mesh -G, single, single, mesh -G, mesh; the first mesh and
+    # mesh -G runs' launch counts are the mesh path's
+    phases.start("6c (mesh flagship)")
+    eps_mesh = {"mesh": [], "mesh_g16": [], "single": []}
+    mesh_launches = []
+    for mode, name in (("mesh", "mesh_flagship"),
+                       ("mesh_g16", "mesh_flagship_g16"),
+                       ("single", "single_fb0"), ("single", "single_fb0_2"),
+                       ("mesh_g16", "mesh_flagship_g16_2"),
+                       ("mesh", "mesh_flagship_2")):
+        if mode == "single":
+            rate = flagship(name, "-fb", "0", batches=MESH_BATCHES)[1]
+        else:
+            got, rate = mesh_flagship(
+                name, *(["-G", "16"] if mode == "mesh_g16" else []))
+            if name in ("mesh_flagship", "mesh_flagship_g16"):
+                mesh_launches.append(got)
+        eps_mesh[mode].append(rate)
+    print(f"mesh flagship execs/s on {card} ({MESH_BATCHES} batches of {B}): "
+          f"--mesh 1,1 {', '.join(f'{r:.0f}' for r in eps_mesh['mesh'])}; "
+          f"--mesh 1,1 -G 16 "
+          f"{', '.join(f'{r:.0f}' for r in eps_mesh['mesh_g16'])}; "
+          f"single-device -fb 0 "
+          f"{', '.join(f'{r:.0f}' for r in eps_mesh['single'])} (in turns: "
+          "mesh, mesh -G, single, single, mesh -G, mesh)", flush=True)
+    # the unfused cuda engine: havoc in torch ops, then kbz_vm_kernel
+    # over every lane (the JAX mesh's pallas engine)
+    vm_all_launches = flagship("mesh_cuda_engine", "--mesh", "1,1", "-fb",
+                               "0", batches=8, engine="cuda",
+                               need=("kbz_vm_kernel_all",))[0]
+    phases.start("6d (mesh stages)")
+    mesh_stages(card)
+
+    # -- phase 7: the record -------------------------------------------
+    phases.start("7 (record)")
     print(f"main-path launches: host-driven {launches}, -G 16 "
-          f"{gen_launches}; over this whole run: in this process "
+          f"{gen_launches}, --mesh 1,1 {mesh_launches[0]}, --mesh 1,1 -G "
+          f"16 {mesh_launches[1]}, --mesh 1,1 engine cuda "
+          f"{vm_all_launches}; over this whole run: in this process "
           f"{vk.LAUNCHES}, in its CLI subprocesses {CLI_LAUNCHES}",
           flush=True)
-    launches = {k: launches[k] + gen_launches[k] for k in launches}
+    launches = {k: launches[k] + gen_launches[k] + mesh_launches[0][k]
+                + mesh_launches[1][k] for k in launches}
     kernels = [
         {"name": "kbz_fuzz_kernel", "route": "cuda", "source": SOURCE,
          "replaces": f"{REF}:566", "launches": launches["kbz_fuzz_kernel"],
@@ -935,8 +1233,14 @@ def main() -> int:
          "bound_ms": b_fuzz, "bound_by": by_fuzz, "library_ms": None},
         {"name": "kbz_vm_kernel", "route": "cuda", "source": SOURCE,
          "replaces": f"{REF}:311", "launches": launches["kbz_vm_kernel"],
-         "max_abs_err": max(err_part, err_full), "ms": t_vm_list,
+         "max_abs_err": err_part, "ms": t_vm_list,
          "plain_ms": t_vm_list_plain, "bound_ms": b_vm, "bound_by": by_vm,
+         "library_ms": None},
+        {"name": "kbz_vm_kernel (all lanes)", "route": "cuda",
+         "source": SOURCE, "replaces": f"{REF}:297",
+         "launches": vm_all_launches["kbz_vm_kernel_all"],
+         "max_abs_err": err_full, "ms": t_vm_all,
+         "plain_ms": t_vm_all_plain, "bound_ms": b_all, "bound_by": by_all,
          "library_ms": None},
     ]
     print(json.dumps({"kernels": kernels}))

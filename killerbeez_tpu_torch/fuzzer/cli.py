@@ -9,7 +9,10 @@ bandit scheduler, stats files and the event log in -o):
         -sf seed.bin -b 65536 \
         -i '{"target": "tlvstack_vm", "engine": "cuda_fused"}'
 Add ``-G 16`` for the device-resident generation loop: 16 generations
-per dispatch, reseeded from a seed-slot ring on the card.
+per dispatch, reseeded from a seed-slot ring on the card.  ``--mesh
+dp,mp`` spreads the campaign over a (dp, mp) mesh of dp x mp cards
+(``--device cpu``: dp x mp CPU shards), with ``-G`` the mesh-resident
+generation scan.
 
 Runs on the CUDA card unless ``--device cpu`` is given.  Flags whose
 machinery is not ported yet are accepted by the parser and refused
@@ -51,7 +54,7 @@ UNPORTED = (
     (("--descend-engine",), None), (("--descend-scan-iters",), None),
     (("--learn",), "?"), (("--learn-interval",), None),
     (("--no-focus",), "?"), (("-dt", "--debug-triage"), "?"),
-    (("--stateful",), "?"), (("--mesh",), None),
+    (("--stateful",), "?"),
 )
 _NOT_GIVEN = object()
 
@@ -179,6 +182,14 @@ def build_parser() -> argparse.ArgumentParser:
                         "Stands down (warning) when the mutator cannot "
                         "run it; with -fb 0 the candidate stream is "
                         "bit-identical to the host-driven loop's")
+    p.add_argument("--mesh",
+                   help='campaign over a "dp,mp" device mesh (e.g. '
+                        "--mesh 4,2): candidates shard over dp, coverage "
+                        "maps over mp, findings land in -o exactly like "
+                        "one device; takes dp x mp CUDA cards (--device "
+                        "cpu: dp x mp CPU shards); requires jit_harness "
+                        "+ havoc and -b divisible by dp; combine with -G "
+                        "for the mesh-resident generation scan")
     p.add_argument("--list", action="store_true",
                    help="list components and their options, then exit")
     for flags, nargs in UNPORTED:
@@ -242,9 +253,30 @@ def main(argv: Optional[List[str]] = None) -> int:
             mutator.set_state(args.mutator_state)
         elif args.mutator_state_file:
             mutator.set_state(read_file(args.mutator_state_file).decode())
-        driver = driver_factory(args.driver, args.driver_options,
-                                instrumentation, mutator,
-                                device=args.device)
+        if args.mesh:
+            from ..parallel.campaign import ShardedCampaignDriver
+            from ..utils.logging import WARNING_MSG
+            if args.driver != "file" or args.driver_options:
+                WARNING_MSG(
+                    "--mesh campaigns deliver candidates on-device; "
+                    "the %r driver%s is ignored", args.driver,
+                    " and -d options" if args.driver_options else "")
+            if args.instrumentation != "jit_harness":
+                print("error: --mesh campaigns need the jit_harness "
+                      "instrumentation", file=sys.stderr)
+                return 2
+            if not hasattr(mutator, "fused_spec"):
+                print("error: --mesh campaigns need the havoc "
+                      "mutator (keyed per-lane candidate streams)",
+                      file=sys.stderr)
+                return 2
+            driver = ShardedCampaignDriver(
+                args.mesh, instrumentation, mutator,
+                batch_size=args.batch_size)
+        else:
+            driver = driver_factory(args.driver, args.driver_options,
+                                    instrumentation, mutator,
+                                    device=args.device)
 
         corpus_dir = args.corpus_dir
         if args.resume and not corpus_dir:

@@ -26,7 +26,12 @@ through the same triage and admission stages.  ``profile_device``
 (``--profile-device``) records a ``torch.profiler`` trace of the first
 N batches or generations.
 
-Not ported yet: the mesh, the crack and repair stages, sync, the
+With a mesh driver (``parallel/campaign.py``, CLI ``--mesh dp,mp``)
+the loop requests whole mesh batches, reads each dp shard's block of
+the compact report, and drains mesh generation reports shard by shard
+through their ``shard(d)`` views.
+
+Not ported yet: the crack and repair stages, sync, the
 learn and hybrid tiers, and the single-exec loop (only batching
 backends exist).
 """
@@ -63,6 +68,12 @@ def _host(x) -> np.ndarray:
     if isinstance(x, torch.Tensor):
         return x.detach().cpu().numpy()
     return np.asarray(x)
+
+
+def _quantum_warning(room: int, quantum: int) -> None:
+    WARNING_MSG("stopping %d iterations early: the mesh executes whole "
+                "%d-lane batches (-n should be a multiple of -b)", room,
+                quantum)
 
 
 class FuzzStats:
@@ -244,10 +255,11 @@ class Fuzzer:
         #: admits edge-novel ring lanes host-side instead — the store
         #: write-through contract holds in both regimes
         self._gen_reseed = True
-        #: host mirror of the device seed-slot ring (slot -> entry
-        #: md5): the admission replay's parent map, rebuilt dispatch by
-        #: dispatch from the device's ledgers
-        self._ring_mirror: Dict[int, str] = {}
+        #: host mirror of the device seed-slot rings ((shard, slot) ->
+        #: entry md5; shard 0 on a single device): the admission
+        #: replay's parent map, rebuilt dispatch by dispatch from the
+        #: device's per-shard ledgers
+        self._ring_mirror: Dict[tuple, str] = {}
         # the arm whose candidates the batch being TRIAGED came from:
         # triage lags generation by the pipeline, so finds credit the
         # GENERATING arm (entry object, robust to corpus index
@@ -596,12 +608,17 @@ class Fuzzer:
     @staticmethod
     def _compact_rows(compact):
         """{batch_lane: report_row} for a CompactReport, or None when
-        the report overflowed (caller falls back to a full pull)."""
-        count = int(np.asarray(compact.count).reshape(()))
+        the report overflowed (caller falls back to a full pull).
+        ``count`` is a scalar (single device: valid rows are the first
+        count) or a per-dp-shard vector (mesh campaigns: each shard
+        owns a cap-row block of the report, lane ids are global)."""
+        counts = np.asarray(compact.count).reshape(-1)
         idx = np.asarray(compact.idx)
-        if count > len(idx):
+        cap = len(idx) // len(counts)
+        if (counts > cap).any():
             return None
-        return {int(idx[r]): r for r in range(count)}
+        return {int(idx[s * cap + j]): s * cap + j
+                for s, c in enumerate(counts) for j in range(int(c))}
 
     def _triage_batch(self, out: BatchOutcome, room: int,
                       done_through: int, packed,
@@ -856,6 +873,9 @@ class Fuzzer:
         mut = self.driver.mutator
         pending: "deque" = deque()
         self._pending = pending         # watchdog-dump visibility
+        # mesh campaigns execute whole mesh batches; a smaller tail is
+        # skipped with a warning instead of dying mid-run
+        quantum = getattr(self.driver, "batch_quantum", 1)
         depth = self.PIPELINE_DEPTH
         accumulate = self._resolve_accumulate()
         if self.feedback and self.scheduler.base_seed is None and \
@@ -868,6 +888,9 @@ class Fuzzer:
                 room = min(self._remaining(n_iterations),
                            mut.remaining(), self.batch_size)
                 if room <= 0:
+                    break
+                if room < quantum:
+                    _quantum_warning(room, quantum)
                     break
                 # the cadence counter lives on self: repeated short
                 # run() calls must not reset the rotation clock
@@ -1022,8 +1045,14 @@ class Fuzzer:
             chaos_point("device_wait")
             h = out.materialize()
         reg = self.telemetry.registry
-        stored = min(int(h.fr_ptr), int(h.cap))
-        drops = int(h.fr_ptr) - stored
+        # mesh outcomes carry a leading dp axis on every field EVEN at
+        # dp = 1, so the discriminator is the shard() view, never the
+        # shard count
+        shard_view = getattr(h, "shard", None)
+        views = [shard_view(d) for d in range(int(h.n_shards))] \
+            if shard_view is not None else [h]
+        stored = [min(int(v.fr_ptr), int(v.cap)) for v in views]
+        drops = sum(int(v.fr_ptr) - st for v, st in zip(views, stored))
         if drops > 0:
             reg.count("findings_ring_drops", drops)
             WARNING_MSG(
@@ -1031,7 +1060,8 @@ class Fuzzer:
                 "interesting lanes dropped this dispatch (finding "
                 "files/events under-report them; counters track the "
                 "loss; raise jit_harness gen_findings_cap)", drops)
-        statuses, new_paths, ucs, uhs = unpack_verdicts(h.fr_pack[:stored])
+        verdicts = [unpack_verdicts(v.fr_pack[:st])
+                    for v, st in zip(views, stored)]
         replay_adm = bool(self.feedback or self.store is not None)
         # reseeding off => the device ledger is empty by construction:
         # edge-novel ring lanes go through host-side admission, same
@@ -1040,39 +1070,47 @@ class Fuzzer:
         admit_ring = not self._gen_reseed
         self._credit_arm = None
 
-        def replay_lane(ei):
-            buf = h.fr_bufs[ei, :int(h.fr_len[ei])].tobytes()
+        def replay_lane(d, ei):
+            v = views[d]
+            statuses, new_paths, ucs, uhs = verdicts[d]
+            buf = v.fr_bufs[ei, :int(v.fr_len[ei])].tobytes()
             self._triage_lane(int(statuses[ei]), int(new_paths[ei]), buf,
                               bool(ucs[ei]), bool(uhs[ei]),
                               admit=admit_ring)
 
         with timer("triage"):
-            ei = 0
+            ei = [0] * len(views)
             for j in range(int(h.g)):
                 gid = int(h.gen0) + j
-                # this generation's interesting lanes first (the ring
-                # is (gen, lane)-ordered), then its admissions
-                while ei < stored and int(h.fr_gen[ei]) <= gid:
-                    replay_lane(ei)
-                    ei += 1
-                if not replay_adm or not int(h.adm_raw[j]):
-                    continue
-                parent = self._ring_mirror.get(int(h.sel[j]), "base")
-                for a in range(h.adm_valid.shape[1]):
-                    if not int(h.adm_valid[j, a]):
+                for d, v in enumerate(views):
+                    # this generation's interesting lanes first (each
+                    # ring is (gen, lane)-ordered), then the shard's
+                    # admissions
+                    while ei[d] < stored[d] and int(v.fr_gen[ei[d]]) <= gid:
+                        replay_lane(d, ei[d])
+                        ei[d] += 1
+                    if not replay_adm or not int(v.adm_raw[j]):
                         continue
-                    buf = h.adm_bufs[j, a, :int(h.adm_len[j, a])].tobytes()
-                    digest = md5_hex(buf)
-                    self._admit_arm(buf, digest, parent=parent)
-                    slot = int(h.adm_slot[j, a])
-                    self._ring_mirror[slot] = digest
-                    self.telemetry.event("ring_admit", md5=digest,
-                                         slot=slot, gen=gid, shard=0,
-                                         parent=parent)
-            while ei < stored:      # defensive: trailing rows
-                replay_lane(ei)
-                ei += 1
-        reg.gauge("gen_ring_filled", int(h.ring_filled.sum()))
+                    parent = self._ring_mirror.get((d, int(v.sel[j])),
+                                                   "base")
+                    for a in range(v.adm_valid.shape[1]):
+                        if not int(v.adm_valid[j, a]):
+                            continue
+                        buf = v.adm_bufs[j, a, :int(v.adm_len[j, a])
+                                         ].tobytes()
+                        digest = md5_hex(buf)
+                        self._admit_arm(buf, digest, parent=parent)
+                        slot = int(v.adm_slot[j, a])
+                        self._ring_mirror[(d, slot)] = digest
+                        self.telemetry.event("ring_admit", md5=digest,
+                                             slot=slot, gen=gid, shard=d,
+                                             parent=parent)
+            for d in range(len(views)):
+                while ei[d] < stored[d]:    # defensive: trailing rows
+                    replay_lane(d, ei[d])
+                    ei[d] += 1
+        reg.gauge("gen_ring_filled",
+                  sum(int(v.ring_filled.sum()) for v in views))
         DEBUG_MSG("generations dispatch done: %d iterations total",
                   done_through)
 
@@ -1093,6 +1131,8 @@ class Fuzzer:
         reseed = bool(self.feedback)
         self._gen_reseed = reseed
         reg = self.telemetry.registry
+        # mesh campaigns execute whole mesh batches per generation
+        quantum = getattr(drv, "batch_quantum", 1)
         stood_down = not drv.supports_batch_generations()
         pending: "deque" = deque()
         if not stood_down:
@@ -1102,6 +1142,9 @@ class Fuzzer:
                     room = min(self._remaining(n_iterations),
                                mut.remaining(), g_max * self.batch_size)
                     if room <= 0:
+                        break
+                    if room < quantum:
+                        _quantum_warning(room, quantum)
                         break
                     if not drv.supports_batch_generations():
                         stood_down = True   # mid-run state change

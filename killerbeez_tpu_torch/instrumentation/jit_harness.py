@@ -237,8 +237,8 @@ def _fused_fuzz_multi(instrs, edge_table, u_slots, seg_id, seed, base_key,
 
 # options of the reference whose machinery this package has not
 # ported yet: passing one (other than at its default) is an error
-_UNPORTED = ("edges", "gen_fold_every", "stateful", "msgs", "n_states",
-             "state_reg", "learn", "grammar", "grammar_stage")
+_UNPORTED = ("edges", "stateful", "msgs", "n_states", "state_reg",
+             "learn", "grammar", "grammar_stage")
 
 ENGINES = ("torch", "cuda", "cuda_fused")
 
@@ -280,6 +280,12 @@ class JitHarnessInstrumentation(Instrumentation):
                             "256, at most 16384; overflow is counted)",
         "gen_admits": "--generations: max ring admissions per "
                       "generation (default 8, at most slots-1)",
+        "gen_fold_every": "--generations on --mesh: AND-fold the virgin "
+                          "maps across dp every N generations (0 = auto: "
+                          "once per dispatch with reseeding on, every "
+                          "generation with it off; a value that does not "
+                          "divide the dispatch's G is lowered to one "
+                          "that does)",
         **{k: "not ported yet" for k in _UNPORTED},
     }
     DEFAULTS = {"novelty": "exact", "edges": 0, "phase1_steps": -1,

@@ -1,10 +1,12 @@
 """Device-resident generation loop — G full fuzzing generations per
 host dispatch.
 
-Port of the JAX package's ``ops/generations.py`` (the single-chip
-scan; the mesh scan is not ported).  The host-driven loop returns to
-the host every batch or superbatch: verdicts cross, triage and corpus
-reseeding run there.  Here one dispatch enqueues, G times,
+Port of the JAX package's ``ops/generations.py``: the single-chip
+scan here, its per-dp-shard pieces (``_select_slot``,
+``_ring_append_and_admit``, ``MeshGenerationOutcome``) shared with the
+mesh scan in ``parallel/distributed.py``.  The host-driven loop
+returns to the host every batch or superbatch: verdicts cross, triage
+and corpus reseeding run there.  Here one dispatch enqueues, G times,
 
     seed-slot pick -> havoc mutate + KBVM execute (the fused kernel,
     reading its seed from the device ring) -> classify -> novelty vs
@@ -133,6 +135,44 @@ class GenerationOutcome(NamedTuple):
         return self._replace(**{
             f: _host_array(v) for f, v in self._asdict().items()
             if isinstance(v, (torch.Tensor, HostCopy))})
+
+
+class MeshGenerationOutcome(NamedTuple):
+    """One mesh dispatch's host-facing report: the per-dp-shard twin of
+    ``GenerationOutcome``.  Every ring/ledger field carries a leading
+    ``dp`` axis, even at dp = 1 (shard d's findings ring, seed-slot ring
+    and admission ledger are independent device state); the loop drains
+    shards in shard order through ``shard(d)`` views."""
+    fr_pack: Any      # uint8[dp, F]
+    fr_gen: Any       # int32[dp, F]
+    fr_iter: Any      # int64[dp, F] (uint32)
+    fr_len: Any       # int32[dp, F]
+    fr_bufs: Any      # uint8[dp, F, L]
+    fr_ptr: Any       # int32[dp]
+    sel: Any          # int32[dp, G]
+    adm_raw: Any      # int32[dp, G]
+    adm_valid: Any    # int32[dp, G, A]
+    adm_slot: Any     # int32[dp, G, A]
+    adm_iter: Any     # int64[dp, G, A] (uint32)
+    adm_len: Any      # int32[dp, G, A]
+    adm_bufs: Any     # uint8[dp, G, A, L]
+    ring_filled: Any  # int32[dp, S]
+    gen0: int = 0
+    g: int = 0
+    n_real: int = 0   # GLOBAL lanes per generation (dp x per-shard)
+    cap: int = 0      # findings-ring capacity F PER SHARD
+    n_shards: int = 1
+
+    prefetch = GenerationOutcome.prefetch
+    materialize = GenerationOutcome.materialize
+
+    def shard(self, d: int) -> GenerationOutcome:
+        """Shard ``d``'s view as a single-chip-shaped outcome (call
+        after ``materialize()``)."""
+        return GenerationOutcome(
+            *(getattr(self, f)[d] for f in GenerationOutcome._fields[:14]),
+            gen0=self.gen0, g=self.g,
+            n_real=self.n_real // max(self.n_shards, 1), cap=self.cap)
 
 
 class RingState(NamedTuple):

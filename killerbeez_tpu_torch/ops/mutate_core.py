@@ -35,9 +35,20 @@ INTERESTING_32 = np.array(
 N_HAVOC_OPS = 15
 
 
+# the interesting-value tables on each device they were asked for:
+# copying them from the host on every edit would wait for the device's
+# queued work
+_TABLES_ON = {}
+
+
 def _table(values, mask, device):
-    return torch.as_tensor(values.astype(np.int64) & mask,
-                           dtype=torch.int64, device=device)
+    key = (len(values), mask, device)
+    t = _TABLES_ON.get(key)
+    if t is None:
+        t = _TABLES_ON[key] = torch.as_tensor(
+            values.astype(np.int64) & mask, dtype=torch.int64,
+            device=device)
+    return t
 
 
 def _havoc_one(buf, length, w):

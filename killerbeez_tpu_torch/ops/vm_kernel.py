@@ -12,7 +12,8 @@ become CUDA C++ kernels for Hopper (``csrc/vm_kernel.cu``):
 
 Each wrapper takes its plain PyTorch version for tensors on the CPU,
 and only then; for CUDA tensors it launches the kernel or raises.
-``LAUNCHES`` counts the kernel launches of each wrapper.
+``LAUNCHES`` counts the kernel launches of each wrapper, those of
+``kbz_vm_kernel`` with a lane list and over all lanes apart.
 
 Layouts are lane-major: inputs u8[B, L], counts u8[B, E+1]; the
 path hash comes back as int64 holding the uint32.  The fused kernel
@@ -43,8 +44,11 @@ from .mutate_core import havoc_at
 M32 = 0xFFFFFFFF
 
 #: kernel launches made by the wrappers (plain-version calls on CPU
-#: tensors do not count)
-LAUNCHES = {"kbz_fuzz_kernel": 0, "kbz_vm_kernel": 0}
+#: tensors do not count): "kbz_vm_kernel" over a lane list (two-phase
+#: scheduling), "kbz_vm_kernel_all" over every lane (the mesh's unfused
+#: cuda engine)
+LAUNCHES = {"kbz_fuzz_kernel": 0, "kbz_vm_kernel": 0,
+            "kbz_vm_kernel_all": 0}
 #: each kernel's last launch: block size, grid, shared memory bytes
 #: per block, resident blocks per SM and whether the lanes' buffers
 #: and counts rows were in shared memory
@@ -124,9 +128,9 @@ def _scratch(lib, lay: Layout, fuzz: bool, mem_size, n_edges, L, n, dev):
 _CFG = {name: (ctypes.c_int * len(_CONFIG_FIELDS))() for name in LAST_CONFIG}
 
 
-def _record_launch(name: str) -> None:
+def _record_launch(name: str, count: str = "") -> None:
     LAST_CONFIG[name] = dict(zip(_CONFIG_FIELDS, _CFG[name]))
-    LAUNCHES[name] += 1
+    LAUNCHES[count or name] += 1
 
 
 def _ptr(t: Optional[torch.Tensor]):
@@ -232,7 +236,9 @@ def run_batch(instrs, edge_table, inputs, lengths, mem_size, max_steps,
         out.path_hash.data_ptr(), torch.cuda.current_stream(dev).cuda_stream,
         _CFG["kbz_vm_kernel"])
     _launch_check(rc, "kbz_vm_kernel")
-    _record_launch("kbz_vm_kernel")
+    _record_launch("kbz_vm_kernel",
+                   "kbz_vm_kernel" if lanes is not None
+                   else "kbz_vm_kernel_all")
     return out
 
 
@@ -274,14 +280,24 @@ def fuzz_batch_plain(instrs, edge_table, ring, ring_lens, sel, base_key,
     row ``sel`` (gathered on the device, like the kernel's load), then
     per-lane keys ``fold_in(base_key, its)``, their havoc words,
     ``havoc_at`` and the torch VM."""
+    bufs, lens = havoc_from_ring(ring, ring_lens, sel, base_key, its,
+                                 stack_pow2)
+    res = _run_batch_impl(instrs, edge_table, bufs, lens, mem_size,
+                          max_steps, n_edges)
+    return res, bufs, lens
+
+
+def havoc_from_ring(ring, ring_lens, sel, base_key, its, stack_pow2=4):
+    """The havoc half of ``kbz_fuzz_kernel``'s plain version, in torch
+    ops on the ring's device: ring row ``sel`` mutated by each lane's
+    words from ``fold_in(base_key, its)``.  Returns (bufs uint8[B, L],
+    lens int32[B]); the unfused ``cuda`` engine of the mesh runs these
+    lanes through ``run_batch``."""
     slot = sel.reshape(1).long()
     seed = ring.index_select(0, slot)[0]
     seed_len = ring_lens.index_select(0, slot)[0]
     words = havoc_words_for_keys(prng.fold_in(base_key, its), stack_pow2)
-    bufs, lens = havoc_at(seed, seed_len, words, stack_pow2)
-    res = _run_batch_impl(instrs, edge_table, bufs, lens, mem_size,
-                          max_steps, n_edges)
-    return res, bufs, lens
+    return havoc_at(seed, seed_len, words, stack_pow2)
 
 
 def fuzz_batch(instrs, edge_table, ring, ring_lens, sel, base_key, its,

@@ -5,7 +5,9 @@ stats struct (fuzzer/main.c prints iteration counts at exit); this
 package gives the port the AFL ecosystem's signals instead: a
 process-local metrics registry with stage timers (metrics.py),
 periodic AFL-compatible ``fuzzer_stats`` / ``plot_data`` /
-``stats.jsonl`` writers (sink.py), and — the flight recorder — a
+``stats.jsonl`` writers (sink.py), an associative snapshot merge
+(aggregate.py) for the (dp, mp) mesh campaign's per-shard fold, and
+— the flight recorder — a
 bounded ring-buffer span tracer with Chrome trace-event export
 (trace.py) plus a typed append-only campaign event log (events.py).
 All files keep the JAX package's formats.
@@ -27,6 +29,7 @@ from __future__ import annotations
 import time
 from typing import Dict, Optional
 
+from .aggregate import merge, merge_events, merge_health, merge_two
 from .events import (
     EVENT_TYPES, EVENTS_FILE, EventLog, SCHEMA_VERSION,
     TERMINAL_EVENTS, last_event_seq, read_events,
@@ -42,7 +45,8 @@ __all__ = [
     "EVENT_TYPES", "EVENTS_FILE", "EmaRate", "EventLog", "Histogram",
     "MetricsRegistry", "SCHEMA_VERSION", "STAGES", "StageTimer",
     "StatsSink", "TERMINAL_EVENTS", "Telemetry", "TraceRecorder",
-    "last_event_seq", "load_chrome_trace", "parse_fuzzer_stats",
+    "last_event_seq", "load_chrome_trace", "merge", "merge_events",
+    "merge_health", "merge_two", "parse_fuzzer_stats",
     "percentiles_from_counts", "read_events", "read_latest_snapshot",
 ]
 

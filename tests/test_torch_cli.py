@@ -89,7 +89,7 @@ def test_state_loads_across_packages(campaigns):
 @pytest.mark.parametrize("extra,flag", [
     (["--schedule", "rare-edge"], "--schedule"),
     (["--sync-manager", "m"], "--sync-manager"),
-    (["--stateful"], "--stateful"), (["--mesh", "4,2"], "--mesh"),
+    (["--stateful"], "--stateful"), (["--hybrid", "test"], "--hybrid"),
     (["--crack"], "--crack"), (["--learn"], "--learn"),
 ])
 def test_unported_flag_exits_2(extra, flag, tmp_path, capsys):

@@ -268,3 +268,117 @@ def test_generations_dispatch_never_waits_for_the_card(cuda):
     assert vk.LAUNCHES["kbz_vm_kernel"] == before["kbz_vm_kernel"] + 4
     assert int(h.ring_filled.sum()) > 1 and int(h.fr_ptr) > 0
     assert mut.iteration == 2048 * 4 + 2000 * 4
+
+
+# -- the mesh (parallel/): dp = 4, mp = 2 shards on one card ---------------
+
+def _mesh_run(devices, engine):
+    """Two mesh steps, a K = 2 superbatch and two -G 4 dispatches on
+    cgc_like (dp = 4, mp = 2, 32 lanes per shard); returns every
+    output as CPU tensors."""
+    from killerbeez_tpu_torch.parallel import (
+        make_mesh, make_sharded_fuzz_step, make_sharded_generations,
+        sharded_gen_ring_init, sharded_state_init,
+    )
+    prog = get_target("cgc_like")
+    mesh = make_mesh(4, 2, devices)
+    dev = mesh.devices[0][0]
+    seed = torch.zeros(16, dtype=torch.uint8, device=dev)
+    seed[:8] = torch.tensor(list(b"CG\x02\x04\x05\x41xx"),
+                            dtype=torch.uint8)
+    step = make_sharded_fuzz_step(prog, mesh, 32, 16, engine=engine,
+                                  seed=11)
+    st = sharded_state_init(mesh, prog.map_size)
+    out = []
+    for base in (0, 128):
+        st, *r = step(st, seed, 8, base)
+        out += r[:7] + list(r[7])
+    st, *r = step.multi(st, seed, 8, 256, 2)
+    out += r[:3] + list(r[3])
+    dispatch = make_sharded_generations(prog, mesh, 32, 16, engine=engine,
+                                        seed=11, salt=11, adm_cap=4,
+                                        findings_cap=64)
+    ring = sharded_gen_ring_init(mesh, seed, 8, 8, 16)
+    for gen0, reseed in ((0, True), (4, False)):
+        st, ring, rep = dispatch(st, ring, 512 + gen0 * 128, gen0, 4,
+                                 reseed=reseed, fold_every=2)
+        out += list(rep)
+    out += [ring.field(f) for f in ("bufs", "lens", "filled", "hits",
+                                    "finds", "ptr")]
+    out += [st.full_map(m) for m in ("virgin_bits", "virgin_crash",
+                                     "virgin_tmout")]
+    return [t.cpu() for t in out]
+
+
+@pytest.mark.parametrize("engine", ["cuda", "cuda_fused"])
+def test_mesh_on_one_card_matches_cpu(engine, cuda):
+    """A dp = 4, mp = 2 mesh on ["cuda:0"] * 8 (the unfused engine runs
+    kbz_vm_kernel over every lane, the fused one kbz_fuzz_kernel) equals
+    the plain path on ["cpu"] * 8: steps, superbatch, generation
+    reports, rings and maps."""
+    before = dict(vk.LAUNCHES)
+    got = _mesh_run(["cuda:0"] * 8, engine)
+    ref = _mesh_run(["cpu"] * 8, "torch")
+    assert len(got) == len(ref)
+    for i, (a, b) in enumerate(zip(got, ref)):
+        assert a.shape == b.shape and torch.equal(
+            a.to(torch.int64), b.to(torch.int64)), i
+    # 4 dp rows x (2 steps + 2 superbatch steps + 8 generations)
+    name = "kbz_fuzz_kernel" if engine == "cuda_fused" \
+        else "kbz_vm_kernel_all"
+    assert vk.LAUNCHES[name] - before[name] == 4 * 12
+
+
+def test_mesh_never_waits_for_the_card(cuda):
+    """A mesh step, a K = 2 superbatch and a -G 4 mesh dispatch with its
+    report's host copies only enqueue work on a dp = 4, mp = 2 mesh on
+    one card: nothing waits for the card (sync debug mode "error")."""
+    from killerbeez_tpu_torch.ops.generations import MeshGenerationOutcome
+    from killerbeez_tpu_torch.parallel import (
+        make_mesh, make_sharded_fuzz_step, make_sharded_generations,
+        sharded_gen_ring_init, sharded_state_init,
+    )
+    prog = get_target("tlvstack_vm")
+    mesh = make_mesh(4, 2, ["cuda:0"] * 8)
+    sb = targets_cgc.tlvstack_vm_seed()
+    seed = torch.zeros(64, dtype=torch.uint8, device="cuda")
+    seed[:len(sb)] = torch.tensor(list(sb), dtype=torch.uint8)
+    for engine in ("cuda", "cuda_fused"):
+        step = make_sharded_fuzz_step(prog, mesh, 512, 64, engine=engine)
+        dispatch = make_sharded_generations(prog, mesh, 512, 64,
+                                            engine=engine, findings_cap=64)
+        st = sharded_state_init(mesh, prog.map_size)
+        ring = sharded_gen_ring_init(mesh, seed, len(sb), 32, 64)
+        # first use: the kernel build, allocations, cached tables
+        st = step(st, seed, len(sb), 0)[0]
+        st, ring, _ = dispatch(st, ring, 2048, 0, 2)
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            st, *out = step(st, seed, len(sb), 4096)
+            st, *multi = step.multi(st, seed, len(sb), 6144, 2)
+            st, ring, rep = dispatch(st, ring, 10240, 2, 4)
+            report = MeshGenerationOutcome(
+                *rep, ring_filled=ring.filled, gen0=2, g=4, n_real=2048,
+                cap=64, n_shards=4).prefetch()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        h = report.materialize()
+        assert h.fr_pack.shape[0] == 4 and h.sel.shape == (4, 4)
+        assert out[0].shape == (2048,) and multi[0].shape == (2, 2048)
+
+
+def test_make_mesh_refuses_more_shards_than_cards(cuda, tmp_path, capsys):
+    """More shards than cards: make_mesh raises, and the CLI's --mesh
+    exits 2 naming the count."""
+    from killerbeez_tpu_torch.fuzzer.cli import main
+    from killerbeez_tpu_torch.parallel import make_mesh
+    n = torch.cuda.device_count()
+    with pytest.raises(ValueError, match=f"need {n + 1} devices, have {n}"):
+        make_mesh(n + 1, 1)
+    assert len(make_mesh(n, 1).devices) == n
+    assert main(["file", "jit_harness", "havoc", "-ss", "CG\x02\x04",
+                 "-i", '{"target": "cgc_like"}', "-o", str(tmp_path),
+                 "-b", str(64 * (n + 1)), "-n", str(64 * (n + 1)),
+                 "--mesh", f"{n + 1},1"]) == 2
+    assert f"need {n + 1} devices, have {n}" in capsys.readouterr().err
