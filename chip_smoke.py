@@ -86,12 +86,34 @@ It builds the CUDA kernels from ``killerbeez_tpu_torch/csrc`` and:
      step by stage (mutate+execute, triage, fold, compaction) at
      --mesh 1,1 x 65536 lanes and at 4,2 x 16384 lanes per shard on
      one card;
-  7. prints one ``{"kernels": [...]}`` line (launches: the first
-     host-driven, the first ``-G 16`` and the first mesh flagship runs
-     together; the all-lanes ``kbz_vm_kernel`` row from the mesh's
-     cuda-engine run), then the card line, then the result line
-     ``{"ok": true, "device": {...}}`` last.  Each phase's wall time is
-     printed as it ends.
+  7. the trace surface: (a) the stream-recording engine (the plain
+     torch engine; no kernel records the stream) on CUDA tensors
+     against the CPU, all six VMResult fields at 4096 lanes on
+     tlvstack_vm and fixedform_vm, and its time on one 65536-lane
+     batch; (b) ``file ipt havoc -b 65536``, unfiltered (kbz_vm_kernel
+     over every lane, 16 batches) and with a block-id filter (the
+     stream engine, 4 batches), with their execs/s, then card == CPU
+     at ``-b 1024`` at the default ``-fb`` with ``PIPELINE_DEPTH = 1``
+     (md5 sets, the ``ipt`` state's hash sets, picks, counters); (c)
+     ``{"edges": 1}`` with cuda_fused: ``get_edges``,
+     ``get_edge_pairs`` and ``last_trace`` after each of four 1024-lane
+     batches and the state card == CPU, the CLI at ``-b 1024`` card ==
+     CPU, and the 65536-lane flagship with and without edges in turns
+     (48 batches each); (d) ``--schedule rare-edge`` at the default
+     ``-fb``: card == CPU at ``-b 1024`` (md5 sets, the corpus
+     sidecars' ``sig``, picks, states, counters), the 65536-lane
+     flagship in turns with ``--schedule bandit`` (48 batches each;
+     the rare-edge run must launch kbz_vm_kernel over all lanes: one
+     1-lane signing per admission), and the signer's host ms per
+     admission; (e) tracer (slots and pairs) and showmap on the seed,
+     card == CPU files;
+  8. prints one ``{"kernels": [...]}`` line (launches: the first
+     host-driven, the first ``-G 16``, the first mesh, the first edges
+     and the first rare-edge flagship runs together; the all-lanes
+     ``kbz_vm_kernel`` row from the mesh's cuda-engine run, the
+     unfiltered ``ipt`` run and the rare-edge run's signer), then the
+     card line, then the result line ``{"ok": true, "device": {...}}``
+     last.  Each phase's wall time is printed as it ends.
 
 Any failure raises: the script exits non-zero and prints no result.
 Outputs go to build/chip_smoke/ in the checkout.
@@ -165,6 +187,8 @@ def card_line() -> str:
 def max_abs_err(a_fields, b_fields) -> int:
     err = 0
     for a, b in zip(a_fields, b_fields):
+        if a is None and b is None:     # a VMResult without a stream
+            continue
         d = (a.to(torch.int64) - b.to(torch.int64)).abs()
         err = max(err, int(d.max()) if d.numel() else 0)
     return err
@@ -211,8 +235,8 @@ def bound(bytes_moved: float, ops: float):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def cli_argv(out, *args):
-    return ["file", "jit_harness", "havoc", "-sf", str(OUT / "seed.bin"),
+def cli_argv(out, *args, instr="jit_harness"):
+    return ["file", instr, "havoc", "-sf", str(OUT / "seed.bin"),
             "-m", json.dumps({"seed": MUT_SEED}), "-o", str(out), "-l",
             '{"level": 1}', *args]
 
@@ -221,13 +245,13 @@ def cli_argv(out, *args):
 CLI_LAUNCHES: dict = {}
 
 
-def run_cli(args, name):
+def run_cli(args, name, instr="jit_harness"):
     """Run the port's CLI in a subprocess; returns (stderr text, output
     dir).  Its kernel launches add to CLI_LAUNCHES."""
     out = OUT / name
     shutil.rmtree(out, ignore_errors=True)
     cmd = [sys.executable, "-m", "killerbeez_tpu_torch.fuzzer",
-           *cli_argv(out, *args)]
+           *cli_argv(out, *args, instr=instr)]
     t0 = time.perf_counter()
     proc = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True)
     wall = time.perf_counter() - t0
@@ -316,19 +340,23 @@ def stats_counters(out: Path):
 
 
 def flagship(name, *args, batches=FLAGSHIP_BATCHES, engine="cuda_fused",
-             need=("kbz_fuzz_kernel", "kbz_vm_kernel")):
+             need=("kbz_fuzz_kernel", "kbz_vm_kernel"), instr="jit_harness",
+             iopts=None):
     """The main path's CLI run; ``need`` names the kernels it must
-    launch.  Returns (launches, execs/s, output dir)."""
+    launch; ``iopts`` replaces the flagship's instrumentation options.
+    Returns (launches, execs/s, output dir)."""
     n_iter = batches * B
+    if iopts is None:
+        iopts = {"target": "tlvstack_vm", "engine": engine,
+                 "novelty": "throughput"}
     log, out = run_cli(
-        ["-b", str(B), "-n", str(n_iter), "-i",
-         json.dumps({"target": "tlvstack_vm", "engine": engine,
-                     "novelty": "throughput"}), *args], name)
+        ["-b", str(B), "-n", str(n_iter), "-i", json.dumps(iopts), *args],
+        name, instr=instr)
     m = re.search(r"kernel launches: (\{.*\})", log)
     if not m:
         raise AssertionError("the CLI printed no kernel launch counts")
     launches = json.loads(m.group(1))
-    if min(launches[k] for k in need) <= 0:
+    if need and min(launches[k] for k in need) <= 0:
         raise AssertionError(f"a kernel never launched on the main path "
                              f"({name}): {launches}")
     eps = re.search(r"Ran (\d+) iterations in ([0-9.]+) seconds "
@@ -349,7 +377,7 @@ def flagship(name, *args, batches=FLAGSHIP_BATCHES, engine="cuda_fused",
     return launches, float(eps.group(3)), out
 
 
-def inprocess(out: Path, *args):
+def inprocess(out: Path, *args, instr="jit_harness"):
     """The port's CLI in this process with PIPELINE_DEPTH = 1; returns
     what the card and the CPU must agree on."""
     from killerbeez_tpu_torch.fuzzer.cli import main as cli_main
@@ -359,7 +387,7 @@ def inprocess(out: Path, *args):
     Fuzzer.PIPELINE_DEPTH = 1
     try:
         rc = cli_main(cli_argv(out, "-isd", f"{out}.isd", "-msd",
-                               f"{out}.msd", *args))
+                               f"{out}.msd", *args, instr=instr))
     finally:
         Fuzzer.PIPELINE_DEPTH = depth
     if rc != 0:
@@ -849,6 +877,273 @@ def mesh_stages(card):
     return result
 
 
+# -- the trace surface (phase 7) ---------------------------------------
+
+TRACE_BATCHES = 48          # the edges and rare-edge flagship runs
+
+
+def mutants(vk, prng, name, n, L, dev):
+    """``n`` havoc mutants of target ``name``'s seed (the fused kernel's
+    plain havoc, from the mutator seed), on ``dev``."""
+    from killerbeez_tpu_torch.models import targets_cgc
+    sb = targets_cgc.VM_SEEDS[name][0]()
+    seed = torch.zeros(L, dtype=torch.uint8, device=dev)
+    seed[:len(sb)] = torch.tensor(list(sb), dtype=torch.uint8)
+    its = torch.arange(n, dtype=torch.int64, device=dev)
+    return vk.havoc_from_ring(*vk.seed_ring(seed, len(sb)),
+                              prng.key(MUT_SEED, device=dev), its,
+                              STACK_POW2)
+
+
+def stream_parity(vk, prng, card):
+    """7a: the stream-recording engine (the plain torch engine on the
+    card; no kernel records the stream) on CUDA tensors against the
+    CPU: all six VMResult fields at 4096 lanes on tlvstack_vm and
+    fixedform_vm; then its time on one 65536-lane flagship batch."""
+    from killerbeez_tpu_torch.models.targets import get_target
+    from killerbeez_tpu_torch.models.vm import run_batch as vm_run
+    from killerbeez_tpu_torch.tools.timing import timed
+    dev = torch.device("cuda")
+    for name, L in (("tlvstack_vm", 64), ("fixedform_vm", 128)):
+        prog = get_target(name)
+        bufs, lens = mutants(vk, prng, name, 4096, L, torch.device("cpu"))
+        ref = vm_run(prog, bufs, lens, record_stream=True)
+        got = vm_run(prog, bufs.to(dev), lens.to(dev), record_stream=True)
+        err = max_abs_err([f.cpu() for f in got], ref)
+        print(f"stream engine card vs CPU ({name}, 4096 lanes, 6 fields): "
+              f"max_abs_err {err}; {int((ref.edge_ids >= 0).sum())} "
+              "stream entries", flush=True)
+        if err:
+            raise AssertionError(f"the stream engine on the card disagrees "
+                                 f"with the CPU ({name})")
+    prog = get_target("tlvstack_vm")
+    bufs, lens = mutants(vk, prng, "tlvstack_vm", B, 64, dev)
+    t_stream = timed(lambda: vm_run(prog, bufs, lens, record_stream=True),
+                     3)
+    t_plain = timed(lambda: vm_run(prog, bufs, lens), 3)
+    print(f"stream engine [{card}]: one {B}-lane tlvstack_vm batch "
+          f"{t_stream:.1f} ms with the stream, {t_plain:.1f} ms without "
+          "(plain torch engine; it reads the running mask every 16 steps, "
+          "so the event span includes the host's waits)", flush=True)
+
+
+def ipt_runs(card):
+    """7b: ``file ipt havoc`` on the card — unfiltered (kbz_vm_kernel
+    over every lane) and filtered (the stream engine) at 65536 lanes,
+    then card == CPU at -b 1024 at the default -fb (PIPELINE_DEPTH 1).
+    Returns the unfiltered run's launches."""
+    base = {"target": "tlvstack_vm"}
+    filt = {**base, "filters": [[0, 30000]]}
+    launches, rate, _ = flagship("ipt", batches=16, instr="ipt",
+                                 iopts=base, need=("kbz_vm_kernel_all",))
+    f_launches, f_rate, _ = flagship("ipt_filtered", batches=4,
+                                     instr="ipt", iopts=filt, need=())
+    if any(f_launches.values()):
+        raise AssertionError(f"the filtered ipt step launched a kernel: "
+                             f"{f_launches}")
+    print(f"ipt execs/s on {card}: unfiltered {rate:.0f} (16 batches of "
+          f"{B}), filtered {f_rate:.0f} (4 batches)", flush=True)
+    for label, iopts in (("unfiltered", base), ("filtered", filt)):
+        got = {dev: inprocess(OUT / f"ipt_{label}_{dev}", "-b", "1024",
+                              "-n", "8192", "--device", dev, "-i",
+                              json.dumps(iopts), instr="ipt")
+               for dev in ("cuda", "cpu")}
+        if got["cuda"] != got["cpu"]:
+            diff = [k for k in got["cuda"]
+                    if got["cuda"][k] != got["cpu"][k]]
+            raise AssertionError(f"ipt ({label}): card and CPU differ in "
+                                 f"{diff}")
+        n_hashes = len(json.loads(got["cuda"]["isd"])["hashes"])
+        print(f"ipt parity ({label}, -b 1024, default -fb): card == CPU "
+              f"({len(got['cuda']['findings']['new_paths'])} new paths, "
+              f"{n_hashes} hashes in the state, equal -isd, -msd, picks "
+              "and counters)", flush=True)
+    return launches
+
+
+def edges_runs(vk, card):
+    """7c: the flagship with {"edges": 1} (cuda_fused): card == CPU for
+    get_edges, get_edge_pairs and last_trace after each of four
+    1024-lane batches and for the state, and for the CLI at -b 1024
+    (default -fb, PIPELINE_DEPTH 1); then execs/s at 65536 lanes in
+    turns with the same run without edges.  Returns the first edges
+    run's launches."""
+    from killerbeez_tpu_torch.drivers.factory import driver_factory
+    from killerbeez_tpu_torch.instrumentation.factory import \
+        instrumentation_factory
+    from killerbeez_tpu_torch.models import targets_cgc
+    from killerbeez_tpu_torch.mutators.factory import mutator_factory
+    seed = targets_cgc.tlvstack_vm_seed()
+    rec = {}
+    for dev, engine in (("cuda", "cuda_fused"), ("cpu", "torch")):
+        before = vk.LAUNCHES["kbz_fuzz_kernel"]
+        instr = instrumentation_factory("jit_harness", json.dumps(
+            {"target": "tlvstack_vm", "engine": engine,
+             "novelty": "throughput", "edges": 1}), device=dev)
+        mut = mutator_factory("havoc", json.dumps({"seed": MUT_SEED}),
+                              seed, device=dev)
+        drv = driver_factory("file", None, instr, mut, device=dev)
+        rows = []
+        for _ in range(4):
+            drv.test_batch(1024)
+            rows.append((instr.get_edges(), instr.get_edge_pairs(),
+                         instr.last_trace().tobytes()))
+        rec[dev] = (rows, instr.get_state())
+        if dev == "cuda" and vk.LAUNCHES["kbz_fuzz_kernel"] - before != 4:
+            raise AssertionError("the edges batches did not run the fused "
+                                 "kernel")
+    if rec["cuda"] != rec["cpu"]:
+        raise AssertionError("{\"edges\": 1}: the card's get_edges / "
+                             "get_edge_pairs / last_trace / state differ "
+                             "from the CPU's")
+    got = {}
+    for dev, engine in (("cuda", "cuda_fused"), ("cpu", "torch")):
+        got[dev] = inprocess(
+            OUT / f"edges_{dev}", "-b", "1024", "-n", "16384", "--device",
+            dev, "-i", json.dumps({"target": "tlvstack_vm",
+                                   "engine": engine,
+                                   "novelty": "throughput", "edges": 1}))
+    if got["cuda"] != got["cpu"]:
+        raise AssertionError("{\"edges\": 1}: the card's CLI run differs "
+                             "from the CPU's")
+    print(f"edges parity: card == CPU (4 batches: "
+          f"{len(rec['cuda'][0][-1][0])} slots, "
+          f"{len(rec['cuda'][0][-1][1])} edge pairs in lane 0 of the last; "
+          f"CLI -b 1024: {len(got['cuda']['findings']['new_paths'])} new "
+          "paths, equal -isd, -msd, picks and counters)", flush=True)
+    eps = {"edges": [], "plain": []}
+    first = None
+    edges_iopts = {"target": "tlvstack_vm", "engine": "cuda_fused",
+                   "novelty": "throughput", "edges": 1}
+    for mode, name in (("edges", "flagship_edges"),
+                       ("plain", "flagship_plain"),
+                       ("plain", "flagship_plain_2"),
+                       ("edges", "flagship_edges_2")):
+        got_l, rate, _ = flagship(
+            name, batches=TRACE_BATCHES,
+            iopts=edges_iopts if mode == "edges" else None)
+        first = first or got_l
+        eps[mode].append(rate)
+    print(f"edges execs/s on {card} ({TRACE_BATCHES} batches of {B}, "
+          f"default -fb): with edges "
+          f"{', '.join(f'{r:.0f}' for r in eps['edges'])}; without "
+          f"{', '.join(f'{r:.0f}' for r in eps['plain'])} (in turns: "
+          "edges, plain, plain, edges)", flush=True)
+    return first
+
+
+def corpus_sigs(corpus_dir: Path):
+    out = {}
+    for path in sorted(corpus_dir.glob("*.json")):
+        meta = json.loads(path.read_text())
+        if "sig" in meta:
+            out[path.name] = meta["sig"]
+    return out
+
+
+def rare_edge_runs(vk, card):
+    """7d: --schedule rare-edge at the default -fb: card == CPU at -b
+    1024 (PIPELINE_DEPTH 1: md5 sets, sidecar sigs, picks, states,
+    counters); execs/s at 65536 lanes in turns with --schedule bandit;
+    the signer's host ms per admission.  Returns the first rare-edge
+    run's launches."""
+    from killerbeez_tpu_torch.fuzzer import cli
+    from killerbeez_tpu_torch.instrumentation.factory import \
+        instrumentation_factory
+    iopts = {"target": "tlvstack_vm", "novelty": "throughput"}
+    got = {}
+    for dev, engine in (("cuda", "cuda_fused"), ("cpu", "torch")):
+        out = OUT / f"rare_{dev}"
+        got[dev] = inprocess(out, "-b", "1024", "-n", "25600", "--device",
+                             dev, "--schedule", "rare-edge", "--corpus-dir",
+                             str(out / "corpus"), "-i",
+                             json.dumps({**iopts, "engine": engine}))
+        got[dev]["sigs"] = corpus_sigs(out / "corpus")
+    if got["cuda"] != got["cpu"]:
+        diff = [k for k in got["cuda"] if got["cuda"][k] != got["cpu"][k]]
+        raise AssertionError(f"rare-edge: card and CPU differ in {diff}")
+    sigs = got["cuda"]["sigs"]
+    if not sigs or not all(sigs.values()):
+        raise AssertionError("rare-edge: the corpus entries are unsigned")
+    print(f"rare-edge parity (-b 1024, PIPELINE_DEPTH 1): card == CPU "
+          f"({len(sigs)} signed entries, picks {got['cuda']['picks']})",
+          flush=True)
+    eps = {"rare": [], "bandit": []}
+    first = out = None
+    for mode, name in (("rare", "flagship_rare"),
+                       ("bandit", "flagship_bandit"),
+                       ("bandit", "flagship_bandit_2"),
+                       ("rare", "flagship_rare_2")):
+        got_l, rate, o = flagship(
+            name, "--schedule", "rare-edge" if mode == "rare" else "bandit",
+            batches=TRACE_BATCHES,
+            need=("kbz_fuzz_kernel", "kbz_vm_kernel")
+            + (("kbz_vm_kernel_all",) if mode == "rare" else ()))
+        if first is None:
+            first, out = got_l, o
+        eps[mode].append(rate)
+    print(f"rare-edge execs/s on {card} ({TRACE_BATCHES} batches of {B}, "
+          f"default -fb): rare-edge "
+          f"{', '.join(f'{r:.0f}' for r in eps['rare'])}; bandit "
+          f"{', '.join(f'{r:.0f}' for r in eps['bandit'])} (in turns: "
+          f"rare, bandit, bandit, rare); the first rare-edge run signed "
+          f"{first['kbz_vm_kernel_all']} admissions", flush=True)
+
+    # the signer's host time per admission: the CLI's signer on the
+    # flagship's instrumentation, over that run's new-path findings
+    class Loop:
+        _signer = None
+
+    class Driver:
+        instrumentation = instrumentation_factory("jit_harness", json.dumps(
+            {**iopts, "engine": "cuda_fused"}))
+
+    loop = Loop()
+    cli._wire_rare_edge_signer(loop, Driver)
+    bufs = [p.read_bytes() for p in sorted((out / "new_paths").iterdir())]
+    loop._signer(bufs[0])                     # first use: allocations
+    before = dict(vk.LAUNCHES)
+    times = []
+    for buf in bufs[:200]:
+        t0 = time.perf_counter()
+        loop._signer(buf)
+        times.append((time.perf_counter() - t0) * 1e3)
+    signs = vk.LAUNCHES["kbz_vm_kernel_all"] - before["kbz_vm_kernel_all"]
+    if signs != len(times):
+        raise AssertionError("the signer did not launch kbz_vm_kernel once "
+                             "per admission")
+    print(f"rare-edge signer [{card}]: host {statistics.median(times):.3f} ms "
+          f"per admission (median of {len(times)}; min {min(times):.3f}, "
+          f"max {max(times):.3f}), one kbz_vm_kernel launch each", flush=True)
+    return first
+
+
+def tool_runs():
+    """7e: tracer (slots and pairs) and showmap on one seed, on the card
+    and on the CPU: the same output files."""
+    from killerbeez_tpu_torch.tools import showmap, tracer
+    base = ["file", "jit_harness", "-sf", str(OUT / "seed.bin"), "-i",
+            json.dumps({"target": "tlvstack_vm"}), "-l", '{"level": 1}']
+    files = {}
+    for dev in ("cuda", "cpu"):
+        d = OUT / f"tools_{dev}"
+        shutil.rmtree(d, ignore_errors=True)
+        d.mkdir(parents=True)
+        for mod, extra in ((tracer, ["-o", str(d / "edges.txt")]),
+                           (tracer, ["-f", "pairs", "-o",
+                                     str(d / "pairs.txt")]),
+                           (showmap, ["-o", str(d / "map.txt")])):
+            if mod.main(base + extra + ["--device", dev]) != 0:
+                raise AssertionError(f"{mod.__name__} failed on {dev}")
+        files[dev] = {p.name: p.read_bytes() for p in sorted(d.iterdir())}
+    if files["cuda"] != files["cpu"] or not all(files["cuda"].values()):
+        raise AssertionError("tracer/showmap: the card's files differ from "
+                             "the CPU's")
+    print(f"tracer and showmap: card == CPU "
+          f"({', '.join(f'{k} {v.count(chr(10).encode())} lines' for k, v in files['cuda'].items())})",
+          flush=True)
+
+
 class Phases:
     """Prints each phase's wall time as the next one starts."""
 
@@ -1216,16 +1511,33 @@ def main() -> int:
     phases.start("6d (mesh stages)")
     mesh_stages(card)
 
-    # -- phase 7: the record -------------------------------------------
-    phases.start("7 (record)")
+    # -- phase 7: the trace surface ------------------------------------
+    phases.start("7a (stream engine)")
+    stream_parity(vk, prng, card)
+    phases.start("7b (ipt)")
+    ipt_launches = ipt_runs(card)
+    phases.start("7c (edges)")
+    edges_launches = edges_runs(vk, card)
+    phases.start("7d (rare-edge)")
+    rare_launches = rare_edge_runs(vk, card)
+    phases.start("7e (tracer, showmap)")
+    tool_runs()
+
+    # -- phase 8: the record -------------------------------------------
+    phases.start("8 (record)")
     print(f"main-path launches: host-driven {launches}, -G 16 "
           f"{gen_launches}, --mesh 1,1 {mesh_launches[0]}, --mesh 1,1 -G "
           f"16 {mesh_launches[1]}, --mesh 1,1 engine cuda "
-          f"{vm_all_launches}; over this whole run: in this process "
-          f"{vk.LAUNCHES}, in its CLI subprocesses {CLI_LAUNCHES}",
+          f"{vm_all_launches}, ipt {ipt_launches}, edges {edges_launches}, "
+          f"rare-edge {rare_launches}; over this whole run: in this "
+          f"process {vk.LAUNCHES}, in its CLI subprocesses {CLI_LAUNCHES}",
           flush=True)
     launches = {k: launches[k] + gen_launches[k] + mesh_launches[0][k]
-                + mesh_launches[1][k] for k in launches}
+                + mesh_launches[1][k] + edges_launches[k] + rare_launches[k]
+                for k in launches}
+    all_lanes = (vm_all_launches["kbz_vm_kernel_all"]
+                 + ipt_launches["kbz_vm_kernel_all"]
+                 + rare_launches["kbz_vm_kernel_all"])
     kernels = [
         {"name": "kbz_fuzz_kernel", "route": "cuda", "source": SOURCE,
          "replaces": f"{REF}:566", "launches": launches["kbz_fuzz_kernel"],
@@ -1238,7 +1550,7 @@ def main() -> int:
          "library_ms": None},
         {"name": "kbz_vm_kernel (all lanes)", "route": "cuda",
          "source": SOURCE, "replaces": f"{REF}:297",
-         "launches": vm_all_launches["kbz_vm_kernel_all"],
+         "launches": all_lanes,
          "max_abs_err": err_full, "ms": t_vm_all,
          "plain_ms": t_vm_all_plain, "bound_ms": b_all, "bound_by": by_all,
          "library_ms": None},

@@ -11,20 +11,26 @@ Everything runs on the CUDA card unless the caller asks for the CPU
 instead.  Asking for the card without one is an error, never a silent
 fall back to the CPU.
 
-Package map (the flagship fuzz loop, the CLI's default campaign and
-its device-resident generation loop):
+Package map (the flagship fuzz loop, the CLI's default campaign, its
+device-resident generation loop, the mesh campaign and the trace
+surface):
   utils/            logging, JSON option parsing, state serialization
-  models/           the KBVM bytecode VM (plain torch engine) + targets
-  ops/              PRNG, havoc, coverage triage, the VM kernels, the
-                    device-resident generation loop (-G)
+  models/           the KBVM bytecode VM (plain torch engines, with the
+                    edge stream and the single-lane reference) + targets
+  ops/              PRNG, havoc, hashing, dense and sparse coverage
+                    triage, the VM kernels, the device-resident
+                    generation loop (-G)
   csrc/             CUDA C++ sources of the kernels
-  instrumentation/  jit_harness
+  instrumentation/  jit_harness (with edge reporting), ipt
   mutators/         havoc
   drivers/          file
   corpus/           the corpus store and the seed schedulers
+  analysis/         the block CFG and the static edge prior
   telemetry/        metrics registry, stats files, event log, span ring
   resilience/       chaos points, checkpoints, the dispatch watchdog
+  parallel/         the mesh campaign (--mesh dp,mp)
   fuzzer/           the batched main loop (corpus feedback) + CLI
+  tools/            tracer, showmap, and diagnostics run on the card
 """
 
 __version__ = "0.1.0"

@@ -12,6 +12,9 @@ interface, not a hard-coded heuristic:
     replaces (same arm scores, same tie-breaks, same splice RNG
     stream — ``--schedule bandit`` reproduces the old rotation
     decisions bit-for-bit on a fixed seed).
+  * ``rare-edge`` — FairFuzz-style: prefer arms whose coverage
+    signature contains the globally rarest edges (hit by the fewest
+    corpus entries), probing unsigned arms once.
   * ``rr``        — round-robin over base + arms, the baseline
     ``bench.py --schedule`` compares against.
 
@@ -331,8 +334,109 @@ class RoundRobinScheduler(Scheduler):
         self._cursor = int(d.get("cursor", 0))
 
 
+class RareEdgeScheduler(Scheduler):
+    """FairFuzz-style rarity scheduling: prefer arms whose coverage
+    signature contains the edges hit by the FEWEST corpus entries.
+    Global hit counts fold over every admitted signature.  Unsigned
+    arms (no signature on this tier) are probed once, then fall behind
+    signed arms; among equal rarity the least-selected arm wins, ties
+    toward the newest."""
+
+    name = "rare-edge"
+
+    #: rarity scale for arms whose md5 is in ``confirmed_md5s`` (the
+    #: JAX package's hybrid tier, carried through checkpoints): a
+    #: confirmed seed's rarest edge counts as half as common
+    CONFIRM_RARITY_SCALE = 0.5
+
+    def __init__(self, cap: Optional[int] = None,
+                 static_prior: Optional[Dict[int, float]] = None):
+        super().__init__(cap)
+        self.edge_hits: Dict[int, int] = {}
+        #: optional static edge-frequency prior (slot -> probability
+        #: mass, ``analysis.static_edge_prior``): breaks cold-start
+        #: ties only — it enters the selection key after every dynamic
+        #: statistic
+        self.static_prior: Optional[Dict[int, float]] = \
+            dict(static_prior) if static_prior else None
+
+    def set_static_prior(self,
+                         prior: Optional[Dict[int, float]]) -> None:
+        """Install the static rarity prior (e.g. from
+        ``analysis.static_edge_prior(program)``)."""
+        self.static_prior = dict(prior) if prior else None
+
+    def _prior_key(self, arm: Arm) -> float:
+        """Statically expected frequency of the arm's rarest edge (0.0
+        without a prior: the ordering is then the unprimed one)."""
+        if not self.static_prior or not arm.sig:
+            return 0.0
+        return min(self.static_prior.get(e, 1.0) for e in arm.sig)
+
+    def _forget(self, arm: Optional[Arm]) -> None:
+        if arm is None or not arm.sig:
+            return
+        for e in arm.sig:
+            n = self.edge_hits.get(e, 0) - 1
+            if n <= 0:
+                self.edge_hits.pop(e, None)
+            else:
+                self.edge_hits[e] = n
+
+    def admit(self, arm: Arm) -> Optional[Arm]:
+        if arm.sig:
+            for e in arm.sig:
+                self.edge_hits[e] = self.edge_hits.get(e, 0) + 1
+        # an arm evicted past the cap leaves through ``drop``, which
+        # releases its edge counts
+        return super().admit(arm)
+
+    def drop(self, index: int) -> Arm:
+        """Arms leaving rotation release their edge counts, or the
+        surviving arms' rarity reads stale."""
+        arm = super().drop(index)
+        self._forget(arm)
+        return arm
+
+    def _rarity(self, arm: Arm) -> float:
+        if not arm.sig:
+            # unsigned: probe once (rarity 0 beats everything), then
+            # fall behind every signed arm
+            return 0.0 if arm[1] == 0 else float("inf")
+        r = float(min(self.edge_hits.get(e, 1) for e in arm.sig))
+        if self.confirmed_md5s and arm.md5 in self.confirmed_md5s:
+            r *= self.CONFIRM_RARITY_SCALE
+        return r
+
+    def select(self) -> Tuple[Optional[int], Optional[bytes]]:
+        if not self.arms:
+            return None, self.base_seed
+        best, best_key = None, None
+        for i, arm in enumerate(self.arms):
+            key = (self._rarity(arm), float(arm[1]),
+                   self._prior_key(arm), -arm.seq)
+            if best_key is None or key < best_key:
+                best, best_key = i, key
+        if best_key is not None and best_key[0] == float("inf") \
+                and self.base_seed is not None:
+            # every arm is unsigned and already probed: split the
+            # budget with the base seed instead of thrashing blind arms
+            if self.rng.random() < 0.5:
+                return None, self.base_seed
+        return best, self.arms[best][0]
+
+    def favored_count(self) -> int:
+        if not self.edge_hits:
+            return len(self.arms)
+        rarest = min(self.edge_hits.values())
+        return sum(1 for a in self.arms if a.sig and
+                   min(self.edge_hits.get(e, 1) for e in a.sig)
+                   <= rarest)
+
+
 SCHEDULERS = {
     "bandit": BanditScheduler,
+    "rare-edge": RareEdgeScheduler,
     "rr": RoundRobinScheduler,
 }
 

@@ -134,6 +134,10 @@ class Driver:
         path with a multi-step instrumentation."""
         return (self.supports_batch
                 and hasattr(self.instrumentation, "run_batch_fused_multi")
+                # edges mode keeps each batch's counts, which the
+                # multi path does not
+                and not getattr(self.instrumentation, "options",
+                                {}).get("edges")
                 and self._wants_fused())
 
     def test_batch_fused_multi(self, n: int, k: int):

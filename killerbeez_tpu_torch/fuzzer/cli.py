@@ -14,9 +14,12 @@ dp,mp`` spreads the campaign over a (dp, mp) mesh of dp x mp cards
 (``--device cpu``: dp x mp CPU shards), with ``-G`` the mesh-resident
 generation scan.
 
-Runs on the CUDA card unless ``--device cpu`` is given.  Flags whose
-machinery is not ported yet are accepted by the parser and refused
-with exit status 2, naming the flag; so is ``--schedule rare-edge``.
+``--schedule rare-edge`` signs each admitted finding with one extra
+execution on a side instrumentation with edge reporting (on the same
+device) and primes the scheduler with the program's static edge
+prior.  Runs on the CUDA card unless ``--device cpu`` is given.  Flags
+whose machinery is not ported yet are accepted by the parser and
+refused with exit status 2, naming the flag.
 Exit 86: the watchdog killed a stuck device wait; exit 87: the card
 was lost (both after a checkpoint, for a supervisor to ``--resume``).
 """
@@ -109,8 +112,10 @@ def build_parser() -> argparse.ArgumentParser:
                    choices=["bandit", "rare-edge", "rr"],
                    help="seed-scheduling policy for corpus feedback "
                         "(default bandit: the greedy-optimistic decay "
-                        "bandit with splice; rr: round-robin; "
-                        "rare-edge is not ported yet)")
+                        "bandit with splice; rare-edge: prefer arms "
+                        "holding the corpus-wide rarest edges, each "
+                        "admission signed by one extra execution; rr: "
+                        "round-robin)")
     p.add_argument("-b", "--batch-size", type=int,
                    default=DEFAULT_BATCH_SIZE,
                    help="candidates per device step")
@@ -203,6 +208,43 @@ def list_components() -> str:
             + mutator_help())
 
 
+def _wire_rare_edge_signer(fuzzer, driver) -> None:
+    """``--schedule rare-edge`` needs per-entry coverage signatures.
+    Each admitted finding is signed with ONE extra execution on a side
+    instrumentation instance with edge reporting forced on, on the main
+    instance's device (the main instance keeps its fused and superbatch
+    paths); admissions are rare, so the batched path stays untouched.
+    Instrumentations that cannot report edges (ipt) leave entries
+    unsigned: the scheduler probes those once."""
+    instr = driver.instrumentation
+    side: dict = {}
+
+    def sign(buf: bytes):
+        s = side.get("instr")
+        if s is None:
+            from ..tools.tracer import force_edges_option
+            s = side["instr"] = instrumentation_factory(
+                instr.name, force_edges_option(json.dumps(instr.options)),
+                device=instr.device)
+        s.enable(buf)
+        edges = s.get_edges()
+        return [e for e, _ in edges] if edges else None
+
+    fuzzer._signer = sign
+
+
+def _wire_static_prior(fuzzer, driver) -> None:
+    """``--schedule rare-edge`` on a KBVM target: prime the scheduler
+    with the static edge-frequency prior (analysis.static_edge_prior),
+    which only breaks cold-start ties."""
+    prog = getattr(driver.instrumentation, "program", None)
+    if prog is None or \
+            not hasattr(fuzzer.scheduler, "set_static_prior"):
+        return
+    from ..analysis import static_edge_prior
+    fuzzer.scheduler.set_static_prior(static_edge_prior(prog))
+
+
 def main(argv: Optional[List[str]] = None) -> int:
     args = build_parser().parse_args(argv)
     for flags, _ in UNPORTED:
@@ -211,14 +253,6 @@ def main(argv: Optional[List[str]] = None) -> int:
             print(f"error: {'/'.join(flags)} is not ported yet",
                   file=sys.stderr)
             return 2
-    if args.schedule == "rare-edge":
-        # it signs each admission on a side instrumentation with edge
-        # reporting, and primes from the static edge prior: neither
-        # is ported yet
-        print("error: --schedule rare-edge is not ported yet (it needs "
-              "the edges instrumentation option and the static edge "
-              "prior); use bandit or rr", file=sys.stderr)
-        return 2
     if args.list:
         print(list_components())
         return 0
@@ -303,6 +337,9 @@ def main(argv: Optional[List[str]] = None) -> int:
                         watchdog=watchdog,
                         profile_device=args.profile_device,
                         generations=args.generations)
+        if args.schedule == "rare-edge":
+            _wire_rare_edge_signer(fuzzer, driver)
+            _wire_static_prior(fuzzer, driver)
         try:
             stats = fuzzer.run(args.iterations)
         except Exception as e:

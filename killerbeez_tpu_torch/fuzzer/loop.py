@@ -221,6 +221,9 @@ class Fuzzer:
         #: durable corpus tier: admissions write through immediately;
         #: scheduler/campaign state flushes every PERSIST_INTERVAL seconds
         self.store = CorpusStore(corpus_dir) if corpus_dir else None
+        #: optional signature hook: bytes -> [edge slot, ...] for the
+        #: entry sidecar (--schedule rare-edge; the CLI installs it)
+        self._signer = None
         #: monotone dispatched-batch counter — the flight recorder
         #: maps it onto PIPELINE_DEPTH trace lanes (seq % depth)
         self._batch_seq = 0
@@ -465,7 +468,8 @@ class Fuzzer:
     def _admit_arm(self, buf: bytes, digest: str, parent: str,
                    credit=_NO_CREDIT) -> None:
         """The ADMISSION stage of triage: mint a corpus arm for an
-        edge-novel finding — store write-through, scheduler admission,
+        edge-novel finding — its coverage signature (``_signer``),
+        store write-through, scheduler admission,
         and one find credited to ``credit``, the arm that GENERATED
         the batch (None: the base seed; ``_NO_CREDIT``: none, for the
         --generations ledger replay).  Shared by host-side lane triage
@@ -476,6 +480,11 @@ class Fuzzer:
         against the scheduler's md5 set, not by a scan of the arms."""
         arm = Arm(buf, parent=parent, discovered=time.time(),
                   tier=self.tier_tag)
+        if self._signer is not None:
+            try:
+                arm.sig = self._signer(buf)
+            except Exception as e:
+                WARNING_MSG("corpus signer failed: %s", e)
         if self.store is not None and not os.path.exists(
                 self.store.entry_path(digest)):
             arm.seq = self.store.next_seq()

@@ -7,11 +7,12 @@ from .factory import (
     instrumentation_factory, instrumentation_help, instrumentation_names,
     register_instrumentation,
 )
+from .ipt import IptInstrumentation
 from .jit_harness import JitHarnessInstrumentation
 
 __all__ = [
     "Instrumentation", "BatchResult",
     "instrumentation_factory", "instrumentation_help",
     "instrumentation_names", "register_instrumentation",
-    "JitHarnessInstrumentation",
+    "IptInstrumentation", "JitHarnessInstrumentation",
 ]

@@ -14,7 +14,7 @@ a state dumped by either package loads in the other.
 
 from __future__ import annotations
 
-from typing import Any, Dict, NamedTuple, Optional
+from typing import Any, Dict, List, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -126,6 +126,21 @@ class Instrumentation:
     def merge(self, other_state: str) -> None:
         raise NotImplementedError(f"{self.name} cannot merge")
 
+    def get_edges(self) -> Optional[List[Tuple[int, int]]]:
+        """(slot, hit count) pairs of the last execution (the tracer
+        and showmap read them); None when the backend can't report
+        edges."""
+        return None
+
+    def get_module_info(self) -> List[str]:
+        """Names of instrumented modules (per-module coverage)."""
+        return []
+
+    def get_edge_pairs(self, module: Optional[str] = None):
+        """(from, to, count) records of the last execution; None when
+        unsupported."""
+        return None
+
     def get_state(self) -> str:
         raise NotImplementedError
 
@@ -143,3 +158,14 @@ class Instrumentation:
             head += f" — {doc[0]}"
         return head + "\n" + format_help(cls.name, cls.OPTION_SCHEMA,
                                          cls.OPTION_DESCS)
+
+
+def module_slice_edges(edges, module_names: List[str], module: str,
+                       partition_size: int):
+    """Restrict a global (slot, count) edge list to one module's map
+    partition, renumbering slots partition-locally."""
+    if edges is None:
+        return None
+    m = module_names.index(module)
+    lo, hi = m * partition_size, (m + 1) * partition_size
+    return [(s - lo, c) for s, c in edges if lo <= s < hi]

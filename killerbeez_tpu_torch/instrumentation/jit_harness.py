@@ -17,6 +17,11 @@ Engines (the reference's xla / pallas / pallas_fused):
 the device (ops/generations.py: the ``-G`` loop), with a seed-slot
 ring that lives on the harness's device.
 
+``{"edges": 1}`` keeps lane 0's static-edge counts of each batch (a
+host copy started without a wait) for ``get_edges``, ``last_trace``,
+``get_edge_pairs`` and the module API — the tracer, showmap and the
+rare-edge signer read them; the superbatch and ``-G`` stand down.
+
 Novelty modes:
   * ``exact``      — lanes judged sequentially (lane i sees the virgin
                      maps after lanes < i): the single-exec loop's
@@ -29,14 +34,15 @@ Novelty modes:
 from __future__ import annotations
 
 import json
-from typing import Any, Dict, Optional, Tuple
+from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
 
-from .. import FUZZ_CRASH, FUZZ_HANG, FUZZ_NONE, FUZZ_RUNNING, \
+from .. import FUZZ_CRASH, FUZZ_HANG, FUZZ_NONE, FUZZ_RUNNING, MAP_SIZE, \
     resolve_device
 from ..models import targets as targets_mod
+from ..ops.host_copy import HostCopy
 from ..ops.coverage import (
     classify_counts, count_non_255_bytes, merge_virgin, simplify_trace,
 )
@@ -50,7 +56,7 @@ from ..ops.vm_kernel import (
 from ..utils.logging import WARNING_MSG
 from ..utils.serialization import decode_array, encode_array
 from .base import BatchResult, CompactReport, Instrumentation, \
-    pack_verdicts
+    module_slice_edges, pack_verdicts
 from .factory import register_instrumentation
 
 # the sequential exact scan is the parity mode; above this lane count
@@ -237,7 +243,7 @@ def _fused_fuzz_multi(instrs, edge_table, u_slots, seg_id, seed, base_key,
 
 # options of the reference whose machinery this package has not
 # ported yet: passing one (other than at its default) is an error
-_UNPORTED = ("edges", "stateful", "msgs", "n_states", "state_reg",
+_UNPORTED = ("stateful", "msgs", "n_states", "state_reg",
              "learn", "grammar", "grammar_stage")
 
 ENGINES = ("torch", "cuda", "cuda_fused")
@@ -270,6 +276,9 @@ class JitHarnessInstrumentation(Instrumentation):
                   'in one kernel; the flagship path) or "torch" (the '
                   'plain PyTorch VM; the default, and only engine, '
                   'on the CPU)',
+        "edges": "1 = keep the last exec's edge counts (tracer / "
+                 "showmap mode: get_edges, get_edge_pairs, last_trace); "
+                 "the superbatch and -G stand down",
         "phase1_steps": "fused-engine two-phase tail scheduling: "
                         "phase-1 step budget (-1 = auto: max_steps/8 "
                         "when max_steps >= 256; 0 = single phase)",
@@ -360,6 +369,9 @@ class JitHarnessInstrumentation(Instrumentation):
         self._seed_ring = None
         self._last_unique_crash = False
         self._last_unique_hang = False
+        # {"edges": 1}: lane 0's counts row of the last batch, a host
+        # copy started without blocking and read by get_edges
+        self._last_counts: Optional[HostCopy] = None
 
     def _args(self):
         p = self.program
@@ -388,6 +400,12 @@ class JitHarnessInstrumentation(Instrumentation):
                 EXACT_BATCH_GATE)
             self.exact = False
 
+    def _keep_counts(self, counts) -> None:
+        """{"edges": 1}: start the host copy of lane 0's counts row (the
+        single-exec surface's lane) without waiting for the card."""
+        if self.options.get("edges"):
+            self._last_counts = HostCopy(counts[:1])
+
     def run_batch(self, inputs, lengths) -> BatchResult:
         """Execute a uint8[B, L] batch; results stay device tensors."""
         b = int(inputs.shape[0])
@@ -397,12 +415,13 @@ class JitHarnessInstrumentation(Instrumentation):
         lengths = torch.as_tensor(lengths, dtype=torch.int32,
                                   device=self.device)
         (statuses, new_paths, uc, uh, exit_codes, vb, vc, vh,
-         _counts) = _fused_step(
+         counts) = _fused_step(
             self._instrs, self._edge_table, self._u_slots, self._seg_id,
             inputs, lengths, self.virgin_bits, self.virgin_crash,
             self.virgin_tmout, *self._args())
         self.virgin_bits, self.virgin_crash, self.virgin_tmout = vb, vc, vh
         self.total_execs += b
+        self._keep_counts(counts)
         return BatchResult(statuses=statuses, new_paths=new_paths,
                            unique_crashes=uc, unique_hangs=uh,
                            exit_codes=exit_codes)
@@ -466,7 +485,7 @@ class JitHarnessInstrumentation(Instrumentation):
         n = len(its)
         self._apply_exact_gate(n)
         seed, base_key, its, sp = self._fused_inputs(mutator, its)
-        (statuses, new_paths, uc, uh, exit_codes, vb, vc, vh, _counts,
+        (statuses, new_paths, uc, uh, exit_codes, vb, vc, vh, counts,
          bufs, lens, compact) = _fused_fuzz_step(
             self._instrs, self._edge_table, self._u_slots, self._seg_id,
             seed, base_key, its, self.virgin_bits,
@@ -474,6 +493,7 @@ class JitHarnessInstrumentation(Instrumentation):
             self.phase1_steps)
         self.virgin_bits, self.virgin_crash, self.virgin_tmout = vb, vc, vh
         self.total_execs += n
+        self._keep_counts(counts)
         return (BatchResult(statuses=statuses, new_paths=new_paths,
                             unique_crashes=uc, unique_hangs=uh,
                             exit_codes=exit_codes),
@@ -509,7 +529,8 @@ class JitHarnessInstrumentation(Instrumentation):
         engine runs the same loop with the plain versions (the CPU
         surface)."""
         return (getattr(mutator, "fused_spec", None) is not None
-                and getattr(mutator, "focus_positions", None) is None)
+                and getattr(mutator, "focus_positions", None) is None
+                and not self.options.get("edges"))
 
     def _ensure_gen_ring(self, seed_buf, seed_len) -> None:
         """(Re)build the device seed-slot ring: slot 0 = the base seed,
@@ -593,6 +614,87 @@ class JitHarnessInstrumentation(Instrumentation):
 
     def last_unique_hang(self) -> bool:
         return self._last_unique_hang
+
+    # -- edge reporting ({"edges": 1}; tracer, showmap, rare-edge) -------
+
+    def _lane0_counts(self) -> Optional[np.ndarray]:
+        """Lane 0's static-edge counts of the last batch (overflow
+        column dropped), or None before any batch or without edges."""
+        if self._last_counts is None:
+            return None
+        return np.asarray(self._last_counts)[0, :-1]
+
+    def get_edges(self) -> Optional[List[Tuple[int, int]]]:
+        """Edge slots of the last exec (lane 0) as (slot, hit_count)
+        pairs; the tracer reads these (requires {"edges": 1}).  Counts
+        are mod-256, like AFL's uint8 trace_bits: an edge hit a
+        multiple of 256 times wraps to 0 and drops out."""
+        c = self._lane0_counts()
+        if c is None:
+            return None
+        agg: dict = {}
+        for s, n in zip(self.program.edge_slot, c.astype(np.int64)):
+            if n:
+                agg[int(s)] = agg.get(int(s), 0) + int(n)
+        return sorted(agg.items())
+
+    def last_trace(self) -> Optional[np.ndarray]:
+        """Dense uint8[map_size] bitmap of the last exec (lane 0),
+        rebuilt from the static-edge counts (requires {"edges": 1};
+        counts wrap at u8 like trace_bits)."""
+        c = self._lane0_counts()
+        if c is None:
+            return None
+        dense = np.zeros(self.program.map_size, np.uint8)
+        np.add.at(dense, np.asarray(self.program.edge_slot), c)
+        return dense
+
+    def get_edge_pairs(self, module: Optional[str] = None
+                       ) -> Optional[List[Tuple[int, int, int]]]:
+        """(from_id, to_id, hit_count) records of the last exec (0 =
+        program entry); ``module`` keeps the edges landing in that
+        module.  Counts are mod-256 (see get_edges)."""
+        c = self._lane0_counts()
+        if c is None:
+            return None
+        prog = self.program
+        ids = prog.block_ids
+        mod_range = None
+        if module is not None:
+            mod_range = prog.modules[list(prog.module_names)
+                                     .index(module)][1:]
+        out = []
+        for e in np.nonzero(c)[0]:
+            f = int(prog.edge_from[e])
+            t = int(prog.edge_to[e])
+            if mod_range is not None and not \
+                    (mod_range[0] <= t < mod_range[1]):
+                continue
+            out.append((0 if f < 0 else ids[f], ids[t], int(c[e])))
+        return out
+
+    def get_module_info(self) -> List[str]:
+        """Coverage module names (one per target module)."""
+        return list(self.program.module_names)
+
+    def module_coverage_bytes(self) -> Dict[str, int]:
+        """Touched virgin bytes per module."""
+        vb = self.virgin_bits.cpu().numpy()
+        return {name: int((vb[m * MAP_SIZE:(m + 1) * MAP_SIZE]
+                           != 0xFF).sum())
+                for m, name in enumerate(self.program.module_names)}
+
+    def module_map_ranges(self):
+        return [(name, m * MAP_SIZE, (m + 1) * MAP_SIZE)
+                for m, name in enumerate(self.program.module_names)]
+
+    def get_module_edges(self, module: str
+                         ) -> Optional[List[Tuple[int, int]]]:
+        """get_edges restricted to one module's slot space, with
+        module-local slot numbers."""
+        return module_slice_edges(self.get_edges(),
+                                  list(self.program.module_names),
+                                  module, MAP_SIZE)
 
     # -- state / merge --------------------------------------------------
 

@@ -28,8 +28,12 @@ logical, compares are signed.
 ``_run_batch_impl`` here is the plain PyTorch version of the CUDA VM
 kernel (``ops/vm_kernel.py``) and the port of the JAX package's
 batched engine ``models/vm._run_batch_impl``: same five outputs, bit
-for bit.  It gathers per lane (the TPU's one-hot selects are not
-semantics) and carries int32 values in int64 so every wrap is explicit.
+for bit, and with ``record_stream`` the sixth, the per-step edge
+stream (the tracer and ``ipt``'s filtered hashes read it; no kernel
+records it yet, so on the card it runs as this plain engine).  It
+gathers per lane (the TPU's one-hot selects are not semantics) and
+carries int32 values in int64 so every wrap is explicit.  ``_run_one``
+is the single-lane reference engine, on host integers.
 """
 
 from __future__ import annotations
@@ -234,22 +238,28 @@ class VMResult(NamedTuple):
     device).  ``counts`` is the hit-count table over the program's
     static edge universe (last column = overflow for pairs outside
     it); ``path_hash`` is the order-aware murmur fold of the block
-    ids a lane executed, a uint32 carried in int64."""
+    ids a lane executed, a uint32 carried in int64.  ``edge_ids`` is
+    the optional time-ordered edge stream: entry i is ``cur_loc ^
+    prev_loc`` when the lane ran a BLOCK at global step i, else -1
+    (None unless the engine was asked to record it)."""
     status: torch.Tensor      # int32[B]: FUZZ_NONE / FUZZ_CRASH / RUNNING
     exit_code: torch.Tensor   # int32[B]
     counts: torch.Tensor      # uint8[B, E+1] static-edge hit counts
     steps: torch.Tensor       # int32[B] steps actually executed
     path_hash: torch.Tensor   # int64[B] holding uint32
+    edge_ids: Optional[torch.Tensor] = None   # int32[B, max_steps]
 
 
-def _wrap32(x: torch.Tensor) -> torch.Tensor:
-    """int64 -> the int32 value with the same low 32 bits (still in
-    int64): two's-complement wrap, written out so it is defined."""
+def _wrap32(x):
+    """int64 (a tensor or a host int) -> the int32 value with the same
+    low 32 bits: two's-complement wrap, written out so it is
+    defined."""
     return ((x + (1 << 31)) & M32) - (1 << 31)
 
 
-def _mix32(x: torch.Tensor) -> torch.Tensor:
-    """murmur3 finalizer over uint32 values carried in int64."""
+def _mix32(x):
+    """murmur3 finalizer over uint32 values carried in int64 (a tensor
+    or a host int)."""
     x = x ^ (x >> 16)
     x = (x * 0x85EBCA6B) & M32
     x = x ^ (x >> 13)
@@ -258,15 +268,132 @@ def _mix32(x: torch.Tensor) -> torch.Tensor:
     return x
 
 
-def _step_batched(instrs, edge_table, inputs, lengths, mem_size, state):
+def _step(instrs, edge_table, input_buf, input_len, mem_size, state):
+    """One VM step for one lane, on host integers: the readable
+    reference engine the batched one is held to.  ``instrs`` and
+    ``edge_table`` are nested lists, ``input_buf`` a list of bytes.
+    state = (pc, regs, mem, prev_loc, status, exit_code, prev_idx,
+    counts, path_hash); regs, mem and counts are lists, updated in
+    place.  Returns (state, edge_id), edge_id -1 unless the lane ran a
+    BLOCK."""
+    (pc, regs, mem, prev_loc, status, exit_code, prev_idx, counts,
+     path_hash) = state
+    ni = len(instrs)
+    op, a, b, c = instrs[min(max(pc, 0), ni - 1)]
+    running = status == FUZZ_RUNNING
+    if not running:
+        return state, -1
+
+    def clip(x, lo, hi):
+        return min(max(x, lo), hi)
+
+    ra = regs[clip(a, 0, N_REGS - 1)]
+    rb = regs[clip(b, 0, N_REGS - 1)]
+    new_pc = pc + 1
+    crashes = pc < 0 or pc >= ni
+    wr = None
+    if op == OP_LDB:
+        ok = 0 <= rb < input_len
+        wr = input_buf[clip(rb, 0, len(input_buf) - 1)] if ok else 0
+    elif op == OP_LDI:
+        wr = b
+    elif op == OP_ALU:
+        x, y = rb, regs[(c >> 3) & (N_REGS - 1)]
+        shift = clip(y, 0, 31)
+        sel = c & 7
+        wr = _wrap32((x + y, x - y, x & y, x | y, x ^ y,
+                        (x & M32) << shift, (x & M32) >> shift,
+                        x * y)[sel])
+    elif op == OP_ADDI:
+        wr = _wrap32(rb + c)
+    elif op == OP_JMP:
+        new_pc = a
+    elif op == OP_BR:
+        y = regs[(b >> 2) & (N_REGS - 1)]
+        taken = (ra == y, ra != y, ra < y, ra >= y)[b & 3]
+        new_pc = c if taken else pc + 1
+    elif op == OP_CRASH:
+        crashes = True
+    elif op == OP_LEN:
+        wr = input_len
+    elif op == OP_LDM:
+        if 0 <= rb < mem_size:
+            wr = mem[rb]
+        else:
+            wr, crashes = 0, True
+    elif op == OP_STM:
+        if 0 <= ra < mem_size:
+            mem[ra] = rb
+        else:
+            crashes = True
+    if wr is not None:
+        regs[clip(a, 0, N_REGS - 1)] = wr
+
+    edge_id = -1
+    if op == OP_BLOCK:
+        cur_loc = a & (MAP_SIZE - 1)
+        edge_id = cur_loc ^ prev_loc
+        nb = len(edge_table[0])
+        cur_idx = clip(b, 0, nb - 1)
+        e = edge_table[clip(prev_idx, 0, nb)][cur_idx]
+        counts[e] = (counts[e] + 1) & 0xFF
+        prev_loc, prev_idx = cur_loc >> 1, cur_idx + 1
+        path_hash = _mix32(path_hash ^ cur_loc)
+    if op == OP_HALT:
+        exit_code = a
+    if crashes:
+        status = FUZZ_CRASH
+    elif op == OP_HALT:
+        status = FUZZ_NONE
+    return (new_pc, regs, mem, prev_loc, status, exit_code, prev_idx,
+            counts, path_hash), edge_id
+
+
+def _run_one(instrs, edge_table, n_edges, mem_size, max_steps,
+             input_buf, input_len) -> VMResult:
+    """Execute one lane to halt, crash or the step budget with the
+    single-lane reference engine (``_step``).  ``input_buf`` is a
+    uint8[L] tensor; the result's fields are tensors on its device
+    (status, exit_code, steps, path_hash 0-d; counts uint8[E+1];
+    edge_ids int32[max_steps], -1 where no BLOCK ran)."""
+    dev = input_buf.device
+    instrs = torch.as_tensor(instrs).tolist()
+    edge_table = torch.as_tensor(edge_table).tolist()
+    buf = input_buf.tolist()
+    state = (0, [0] * N_REGS, [0] * mem_size, 0, FUZZ_RUNNING, 0, 0,
+             [0] * (n_edges + 1), 0)
+    edges = [-1] * max_steps
+    i = 0
+    while state[4] == FUZZ_RUNNING and i < max_steps:
+        state, edges[i] = _step(instrs, edge_table, buf, int(input_len),
+                                mem_size, state)
+        i += 1
+
+    def i32(x):
+        return torch.tensor(x, dtype=torch.int32, device=dev)
+
+    return VMResult(status=i32(state[4]), exit_code=i32(state[5]),
+                    counts=torch.tensor(state[7], dtype=torch.uint8,
+                                        device=dev),
+                    steps=i32(i),
+                    path_hash=torch.tensor(state[8], dtype=torch.int64,
+                                           device=dev),
+                    edge_ids=i32(edges))
+
+
+def _step_batched(instrs, edge_table, inputs, lengths, mem_size, state,
+                  record_stream=False):
     """One VM step for every lane of ``state`` (all running at entry
     or frozen: lanes that are not running change nothing).  State is
     int64: (pc, regs [B, 9], mem [B, mem_size + 1], status, exit_code,
-    prev_idx, counts [B, E+1], path_hash, lane_steps); the last column
-    of regs and mem is a sink for writes that do not happen.  regs,
-    mem and counts are updated in place."""
+    prev_idx, counts [B, E+1], path_hash, lane_steps, prev_loc); the
+    last column of regs and mem is a sink for writes that do not
+    happen.  regs, mem and counts are updated in place; prev_loc only
+    moves when ``record_stream``.  Returns (state, edge): edge is this
+    step's stream entry per lane (``cur_loc ^ prev_loc`` at a BLOCK,
+    else -1) when ``record_stream``, else None."""
     (pc, regs, mem, status, exit_code, prev_idx, counts, path_hash,
-     lane_steps) = state
+     lane_steps, prev_loc) = state
     ni = instrs.shape[0]
     L = inputs.shape[1]
     nb = edge_table.shape[1]
@@ -344,23 +471,30 @@ def _step_batched(instrs, edge_table, inputs, lengths, mem_size, state):
     new_prev_idx = torch.where(is_block, cur_idx + 1, prev_idx)
     new_hash = torch.where(is_block, _mix32(path_hash ^ cur_loc),
                            path_hash)
+    edge = None
+    if record_stream:
+        edge = torch.where(is_block, cur_loc ^ prev_loc, -1)
+        prev_loc = torch.where(is_block, cur_loc >> 1, prev_loc)
 
     return (torch.where(running, new_pc, pc), regs, mem,
             torch.where(running, new_status, status),
             torch.where(running, new_exit, exit_code),
             new_prev_idx, counts, new_hash,
-            lane_steps + running.to(lane_steps.dtype))
+            lane_steps + running.to(lane_steps.dtype), prev_loc), edge
 
 
 def _run_batch_impl(instrs, edge_table, inputs, lengths, mem_size,
-                    max_steps, n_edges) -> VMResult:
+                    max_steps, n_edges, record_stream=False) -> VMResult:
     """Run a uint8[B, L] batch to halt, crash or ``max_steps``: the
     plain PyTorch VM.  ``instrs``/``edge_table`` are int tensors.
+    ``record_stream`` also returns the edge stream (``edge_ids``).
 
     Every 16 steps the lanes that stopped running are retired: their
     outputs are written and the step continues on the lanes still
     running only (a stopped lane's state never changes, so this is
-    the same result at a fraction of the work)."""
+    the same result at a fraction of the work).  The stream is written
+    straight into the output rows at the global step index, so a
+    retired lane keeps its -1 tail."""
     dev = inputs.device
     b = inputs.shape[0]
 
@@ -373,10 +507,14 @@ def _run_batch_impl(instrs, edge_table, inputs, lengths, mem_size,
                    counts=torch.zeros((b, n_edges + 1), dtype=torch.uint8,
                                       device=dev),
                    steps=torch.zeros(b, dtype=torch.int32, device=dev),
-                   path_hash=zeros(b))
+                   path_hash=zeros(b),
+                   edge_ids=(torch.full((b, max_steps), -1,
+                                        dtype=torch.int32, device=dev)
+                             if record_stream else None))
     state = (zeros(b), zeros(b, N_REGS + 1), zeros(b, mem_size + 1),
              torch.full((b,), FUZZ_RUNNING, dtype=torch.int64, device=dev),
-             zeros(b), zeros(b), zeros(b, n_edges + 1), zeros(b), zeros(b))
+             zeros(b), zeros(b), zeros(b, n_edges + 1), zeros(b), zeros(b),
+             zeros(b))
     instrs = instrs.to(device=dev, dtype=torch.int64)
     edge_table = edge_table.to(device=dev, dtype=torch.int64)
     inputs = inputs.to(torch.int64)
@@ -403,20 +541,48 @@ def _run_batch_impl(instrs, edge_table, inputs, lengths, mem_size,
                 inputs, lengths, lanes = (inputs[running],
                                           lengths[running],
                                           lanes[running])
-        state = _step_batched(instrs, edge_table, inputs, lengths,
-                              mem_size, state)
+        state, edge = _step_batched(instrs, edge_table, inputs, lengths,
+                                    mem_size, state, record_stream)
+        if record_stream:
+            out.edge_ids[lanes, i] = edge.to(torch.int32)
     if lanes.numel():
         retire(torch.ones(lanes.shape[0], dtype=torch.bool, device=dev))
     return out
 
 
 def run_batch(program: Program, inputs: torch.Tensor,
-              lengths: torch.Tensor) -> VMResult:
+              lengths: torch.Tensor, record_stream: bool = False
+              ) -> VMResult:
     """Execute a uint8[B, L] candidate batch through the program with
     the plain engine.  Lanes still RUNNING after ``max_steps`` are
-    hangs (callers map FUZZ_RUNNING -> FUZZ_HANG)."""
+    hangs (callers map FUZZ_RUNNING -> FUZZ_HANG).
+
+    ``record_stream=True`` also records the [B, max_steps] edge stream
+    (``VMResult.edge_ids``).  The JAX package's ``run_batch`` defaults
+    to ``True``; here the default stays ``False``, so callers that want
+    the stream (and tests holding the two packages together) pass the
+    argument explicitly on both sides."""
     dev = inputs.device
     return _run_batch_impl(torch.as_tensor(program.instrs, device=dev),
                            torch.as_tensor(program.edge_table, device=dev),
                            inputs, lengths, program.mem_size,
-                           program.max_steps, program.n_edges)
+                           program.max_steps, program.n_edges,
+                           record_stream)
+
+
+def compile_runner(program: Program, record_stream: bool = True):
+    """A ``(inputs, lengths) -> VMResult`` closure over ``program``
+    (the plain engine, the stream recorded by default as in the JAX
+    package); the program's tables are placed once per device."""
+    tables = {}
+
+    def runner(inputs, lengths):
+        dev = inputs.device
+        if dev not in tables:
+            tables[dev] = (torch.as_tensor(program.instrs, device=dev),
+                           torch.as_tensor(program.edge_table, device=dev))
+        return _run_batch_impl(*tables[dev], inputs, lengths,
+                               program.mem_size, program.max_steps,
+                               program.n_edges, record_stream)
+
+    return runner

@@ -352,6 +352,12 @@ def run_generations(instrs, edge_table, u_slots, seg_id, ring: RingState,
     L = ring.bufs.shape[1]
     F = int(findings_cap)
     A = int(adm_cap) if reseed else 1   # ledger shape floor
+    if A > ring.slots - 1:
+        # admissions must land in distinct slots: a duplicate scatter
+        # index has no defined winner on the card
+        raise ValueError(f"adm_cap {adm_cap} exceeds the ring's "
+                         f"{ring.slots - 1} admission slots "
+                         "(gen_ring_caps clamps it)")
     lanes_real = torch.arange(b, device=dev) < int(n_real)
     if dev.type != "cuda":
         phase1_steps = 0

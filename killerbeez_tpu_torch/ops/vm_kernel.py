@@ -182,7 +182,8 @@ def run_batch_plain(instrs, edge_table, inputs, lengths, mem_size,
                           mem_size, max_steps, n_edges)
     out = _result(inputs.shape[0], n_edges, inputs.device, zero=True)
     for full, part in zip(out, sub):
-        full[idx] = part
+        if full is not None:            # no edge stream
+            full[idx] = part
     return out
 
 
@@ -397,5 +398,5 @@ def fuzz_batch_2phase(instrs, edge_table, ring, ring_lens, sel, base_key,
                      n_edges, lanes=lanes, n_lanes=n_lanes)
     res = VMResult(*(torch.where(surv if f1.dim() == 1 else surv[:, None],
                                  f2, f1)
-                     for f1, f2 in zip(res1, res2)))
+                     for f1, f2 in zip(res1, res2) if f1 is not None))
     return res, bufs, lens

@@ -1,1 +1,3 @@
-"""Diagnostics of the port (run on the card)."""
+"""Tools of the port: tracer and showmap (``python -m
+killerbeez_tpu_torch.tools.<name>``) and diagnostics run on the card
+(timing, kernel A/B, host profile)."""

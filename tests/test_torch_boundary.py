@@ -62,7 +62,7 @@ def test_torch_engine_refused_on_the_card(monkeypatch):
 
 
 @pytest.mark.parametrize("opt", [{"stateful": 1}, {"learn": 1},
-                                 {"grammar": "auto"}, {"edges": 1},
+                                 {"grammar": "auto"}, {"n_states": 2},
                                  {"msgs": 2}])
 def test_unported_options_raise(opt):
     with pytest.raises(ValueError, match="not ported yet"):

@@ -2,7 +2,7 @@
 ``tlvstack_vm`` at ``-fb 0`` writes the same md5 sets under
 crashes/, hangs/ and new_paths/ and dumps the same instrumentation
 state string; each package loads the other's state; unported flags
-(and ``--schedule rare-edge``) exit 2 naming the flag."""
+exit 2 naming the flag."""
 
 import json
 import os
@@ -87,7 +87,7 @@ def test_state_loads_across_packages(campaigns):
 
 
 @pytest.mark.parametrize("extra,flag", [
-    (["--schedule", "rare-edge"], "--schedule"),
+    (["--vsa"], "--vsa"),
     (["--sync-manager", "m"], "--sync-manager"),
     (["--stateful"], "--stateful"), (["--hybrid", "test"], "--hybrid"),
     (["--crack"], "--crack"), (["--learn"], "--learn"),

@@ -16,7 +16,7 @@ from killerbeez_tpu.corpus import store as jax_store
 from killerbeez_tpu_torch.corpus import schedule, store
 from killerbeez_tpu_torch.resilience import chaos, checkpoint
 
-SCHEDULERS = ["bandit", "rr"]
+SCHEDULERS = ["bandit", "rr", "rare-edge"]
 
 
 def _episode(mod, name, seed, steps=60):

@@ -48,7 +48,7 @@ from killerbeez_tpu_torch.instrumentation.jit_harness import (
 )
 from killerbeez_tpu_torch.mutators.randomized import HavocMutator
 from killerbeez_tpu_torch.ops.generations import (
-    _select_slot, np_select_slot,
+    _select_slot, new_ring, np_select_slot, run_generations,
 )
 from killerbeez_tpu_torch.resilience.watchdog import DispatchWatchdog
 
@@ -180,6 +180,36 @@ def test_dispatch_matches_jax(target, g, reseed, novelty):
     assert ti.total_execs == ji.total_execs == n * g * (2 if g == 1 else 1)
     if reseed and target == "cgc_like":
         assert int(ref.ring_filled.sum()) > 1       # admissions happened
+
+
+def _direct_dispatch(instr, mut, slots, adm_cap, reseed=True):
+    """One G = 1 ``run_generations`` call made directly (no
+    ``gen_ring_caps`` clamp) on a fresh ring of ``slots`` slots."""
+    seed_buf, seed_len, base_key, sp = mut.fused_spec()
+    ring = new_ring(seed_buf.to(instr.device), seed_len, slots)
+    its = instr._its(mut.peek_iterations(64))
+    p = instr.program
+    return run_generations(
+        instr._instrs, instr._edge_table, instr._u_slots, instr._seg_id,
+        ring, base_key.to(instr.device), its, 64, 0, 0,
+        instr.virgin_bits, instr.virgin_crash, instr.virgin_tmout,
+        mem_size=p.mem_size, max_steps=p.max_steps, n_edges=p.n_edges,
+        exact=False, stack_pow2=int(sp), g=1, reseed=reseed,
+        adm_cap=adm_cap, findings_cap=64)
+
+
+def test_run_generations_refuses_admissions_past_the_ring():
+    """An admission cap above the ring's S - 1 admission slots would
+    repeat a slot in one scatter (no defined winner on the card): the
+    dispatch refuses it with the mesh's wording; S - 1 runs, and so does
+    any cap with reseeding off (the ledger keeps one row)."""
+    ti, tm, _ = _parts("torch", {"target": "cgc_like"}, CGC_SEED)
+    with pytest.raises(ValueError, match="adm_cap 8 exceeds the ring's "
+                       "7 admission slots"):
+        _direct_dispatch(ti, tm, 8, 8)
+    _, ring, _ = _direct_dispatch(ti, tm, 8, 7)
+    assert ring.slots == 8
+    _direct_dispatch(ti, tm, 8, 8, reseed=False)
 
 
 # ---------------------------------------------------------------------------

@@ -41,7 +41,10 @@ def _setup(name, dev, B=2048, L=64):
 
 def _equal(a, b):
     for x, y in zip(a, b):
-        assert torch.equal(x.to(torch.int64), y.to(torch.int64))
+        if x is None and y is None:     # no edge stream on either side
+            continue
+        assert torch.equal(x.to(torch.int64).cpu(),
+                           y.to(torch.int64).cpu())
 
 
 @pytest.mark.parametrize("name", TARGETS)
@@ -268,6 +271,94 @@ def test_generations_dispatch_never_waits_for_the_card(cuda):
     assert vk.LAUNCHES["kbz_vm_kernel"] == before["kbz_vm_kernel"] + 4
     assert int(h.ring_filled.sum()) > 1 and int(h.fr_ptr) > 0
     assert mut.iteration == 2048 * 4 + 2000 * 4
+
+
+def test_generations_refuse_admissions_past_the_ring(cuda):
+    """On the card an admission cap above the ring's S - 1 slots would
+    leave either of two lanes in a repeated slot: the dispatch refuses
+    it before enqueueing anything; S - 1 runs and fills the ring."""
+    from killerbeez_tpu_torch.instrumentation.jit_harness import (
+        JitHarnessInstrumentation,
+    )
+    from killerbeez_tpu_torch.mutators.randomized import HavocMutator
+    from killerbeez_tpu_torch.ops.generations import new_ring, \
+        run_generations
+
+    instr = JitHarnessInstrumentation(
+        '{"target": "cgc_like", "engine": "cuda_fused", '
+        '"novelty": "throughput"}')
+    mut = HavocMutator('{"seed": 11}', b"CG\x02\x04\x05\x41xx")
+    seed_buf, seed_len, base_key, sp = mut.fused_spec()
+    p = instr.program
+
+    def dispatch(adm_cap):
+        ring = new_ring(seed_buf.to(cuda), seed_len, 8)
+        return run_generations(
+            instr._instrs, instr._edge_table, instr._u_slots,
+            instr._seg_id, ring, base_key.to(cuda),
+            instr._its(mut.peek_iterations(2048)), 2048, 0, 0,
+            instr.virgin_bits, instr.virgin_crash, instr.virgin_tmout,
+            mem_size=p.mem_size, max_steps=p.max_steps, n_edges=p.n_edges,
+            exact=False, stack_pow2=int(sp), g=4, adm_cap=adm_cap,
+            findings_cap=256)
+
+    before = dict(vk.LAUNCHES)
+    with pytest.raises(ValueError, match="exceeds the ring's 7 "
+                       "admission slots"):
+        dispatch(8)
+    assert vk.LAUNCHES == before
+    _, ring, _ = dispatch(7)
+    assert int(ring.filled[:ring.slots].sum()) > 1
+
+
+def test_stream_engine_on_the_card_equals_the_cpu(cuda):
+    """The stream-recording plain engine on CUDA tensors: all six
+    VMResult fields equal the CPU run's."""
+    from killerbeez_tpu_torch.models.vm import run_batch
+
+    for name in ("tlvstack_vm", "fixedform_vm"):
+        L = 128 if name == "fixedform_vm" else 64
+        prog, _, _, seed, _, _, _ = _setup(name, cuda, B=512, L=L)
+        g = torch.Generator().manual_seed(5)
+        bufs = seed.cpu()[None, :].repeat(512, 1)
+        flip = torch.rand((512, L), generator=g) < 0.1
+        bufs = torch.where(flip, torch.randint(0, 256, (512, L),
+                                               generator=g,
+                                               dtype=torch.uint8), bufs)
+        lens = torch.randint(1, L + 1, (512,), generator=g,
+                             dtype=torch.int32)
+        ref = run_batch(prog, bufs, lens, record_stream=True)
+        got = run_batch(prog, bufs.to(cuda), lens.to(cuda),
+                        record_stream=True)
+        _equal(got, ref)
+
+
+def test_ipt_step_on_the_card_equals_the_cpu(cuda):
+    """ipt's unfiltered step (kbz_vm_kernel over every lane) and its
+    filtered step (the stream engine, murmur3) on the card: the same
+    verdicts, hash sets and state as on the CPU."""
+    import json
+
+    from killerbeez_tpu_torch.instrumentation.ipt import IptInstrumentation
+
+    prog, _, _, seed, _, _, _ = _setup("tlvstack_vm", cuda, B=1024)
+    g = torch.Generator().manual_seed(9)
+    bufs = seed.cpu()[None, :].repeat(1024, 1)
+    flip = torch.rand((1024, 64), generator=g) < 0.1
+    bufs = torch.where(flip, torch.randint(0, 256, (1024, 64), generator=g,
+                                           dtype=torch.uint8), bufs)
+    lens = torch.randint(1, 65, (1024,), generator=g, dtype=torch.int32)
+    for opts in ({"target": "tlvstack_vm"},
+                 {"target": "tlvstack_vm", "filters": [[0, 30000]]}):
+        before = vk.LAUNCHES["kbz_vm_kernel_all"]
+        card = IptInstrumentation(json.dumps(opts))
+        host = IptInstrumentation(json.dumps(opts), device="cpu")
+        a = card.run_batch(bufs.to(cuda), lens.to(cuda))
+        b = host.run_batch(bufs, lens)
+        _equal(a, b)
+        assert card.get_state() == host.get_state()
+        assert vk.LAUNCHES["kbz_vm_kernel_all"] - before == \
+            (0 if "filters" in opts else 1)
 
 
 # -- the mesh (parallel/): dp = 4, mp = 2 shards on one card ---------------
