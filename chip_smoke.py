@@ -28,13 +28,15 @@ It builds the CUDA kernels from ``killerbeez_tpu_torch/csrc`` and:
      packing), with CUDA events (median of several runs after a
      warm-up), and prints each kernel's launch shape (block size, grid,
      shared memory per block, resident blocks per SM);
-  3. drives the main path: the port's CLI in a subprocess, ``file
+  3. drives the main path: the port's CLI (its ``main``, in this
+     process, as every CLI run of this script), ``file
      jit_harness havoc -b 65536 -n 6291456`` with engine cuda_fused
      (twelve superbatches of 8 x 65536 lanes) and no ``-fb`` flag, the
      default campaign: corpus feedback every 8 batches with the bandit
      scheduler, stats files and the event log; requires exit 0, launch
-     counts > 0 for both kernels (the CLI prints them; the subprocess
-     starts from zero), findings in new_paths/, ``fuzzer_stats`` and a
+     counts > 0 for both kernels (the CLI prints them; every count is
+     set to 0 just before a CLI run), findings in new_paths/,
+     ``fuzzer_stats`` and a
      ``scheduler_pick`` event onto an admitted arm, not the base seed;
      runs it and the same command at ``-fb 0`` in turns (default,
      ``-fb 0``, ``-fb 0``, default) and prints the four execs/s beside
@@ -107,15 +109,34 @@ It builds the CUDA kernels from ``killerbeez_tpu_torch/csrc`` and:
      1-lane signing per admission), and the signer's host ms per
      admission; (e) tracer (slots and pairs) and showmap on the seed,
      card == CPU files;
-  8. prints one ``{"kernels": [...]}`` line (launches: the first
+  8. every mutator but grammar, each feeding ``kbz_vm_kernel`` over
+     every lane through the unfused ``cuda`` engine: (a) each mutator's
+     ``mutate_batch`` on CUDA tensors against the CPU at the flagship
+     shape (65536 lanes or a finite walk's whole length; afl across
+     every stage boundary into havoc; manager with bit_flip and havoc
+     children), bytes and lengths equal; (b) the CLI at ``-b 1024``,
+     card (engine cuda) against CPU (engine torch) in this process with
+     ``PIPELINE_DEPTH = 1``: every finite walk run to its end, the
+     randomized ones at ``-fb 0`` and at the default ``-fb``, radamsa
+     through a stand-in binary (md5 sets, ``-isd``, ``-msd``, picks,
+     counters); (c) ``afl``, ``zzuf`` and ``honggfuzz`` at ``-b 65536``
+     (48 batches each, default ``-fb``) in turns with the havoc
+     ``cuda_fused`` flagship — exit 0, findings, ``kbz_vm_kernel_all``
+     launches — with each run's execs/s beside the card's name and
+     power limit; (d) device ms per 65536-lane batch by stage: each
+     mutator's candidates, ``kbz_vm_kernel`` over every lane, triage;
+  9. prints one ``{"kernels": [...]}`` line (launches: the first
      host-driven, the first ``-G 16``, the first mesh, the first edges
      and the first rare-edge flagship runs together; the all-lanes
      ``kbz_vm_kernel`` row from the mesh's cuda-engine run, the
-     unfiltered ``ipt`` run and the rare-edge run's signer), then the
-     card line, then the result line ``{"ok": true, "device": {...}}``
-     last.  Each phase's wall time is printed as it ends.
+     unfiltered ``ipt`` run, the rare-edge run's signer and phase 8c's
+     afl, zzuf and honggfuzz runs), then the card line, then the result
+     line ``{"ok": true, "device": {...}}`` last.  Each phase's wall
+     time is printed as it ends.
 
 Any failure raises: the script exits non-zero and prints no result.
+Every CLI run goes through the CLI's ``main`` in this process, so a
+run pays no interpreter start and no kernel load of its own.
 Outputs go to build/chip_smoke/ in the checkout.
 
 ``bound_ms`` is the least time the card could take for a kernel's
@@ -129,6 +150,9 @@ kernel issues: see ``vm_ops`` and ``havoc_ops``.
 
 from __future__ import annotations
 
+import contextlib
+import gc
+import io
 import json
 import os
 import re
@@ -235,34 +259,50 @@ def bound(bytes_moved: float, ops: float):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def cli_argv(out, *args, instr="jit_harness"):
-    return ["file", instr, "havoc", "-sf", str(OUT / "seed.bin"),
-            "-m", json.dumps({"seed": MUT_SEED}), "-o", str(out), "-l",
-            '{"level": 1}', *args]
+def cli_argv(out, *args, instr="jit_harness", mutator="havoc",
+             mopts=None, seed=None):
+    """The CLI's arguments: ``mutator`` with options ``mopts`` (default
+    ``{"seed": MUT_SEED}``) on seed file ``seed`` (default the
+    flagship's)."""
+    return ["file", instr, mutator, "-sf", str(seed or OUT / "seed.bin"),
+            "-m", json.dumps({"seed": MUT_SEED} if mopts is None
+                             else mopts),
+            "-o", str(out), "-l", '{"level": 1}', *args]
 
 
-#: kernel launches of every CLI subprocess of this run, by kernel
+#: kernel launches of every CLI run of this script, by kernel
 CLI_LAUNCHES: dict = {}
 
 
-def run_cli(args, name, instr="jit_harness"):
-    """Run the port's CLI in a subprocess; returns (stderr text, output
-    dir).  Its kernel launches add to CLI_LAUNCHES."""
+def run_cli(args, name, instr="jit_harness", **mut):
+    """Run the port's CLI through its ``main`` in this process (``mut``:
+    cli_argv's mutator, mopts, seed) with every kernel launch count set
+    to 0 just before; returns (its log, output dir).  Its launches add
+    to CLI_LAUNCHES, and after it to this process's counts again."""
+    from killerbeez_tpu_torch.fuzzer.cli import main as cli_main
+    from killerbeez_tpu_torch.ops.vm_kernel import LAUNCHES
     out = OUT / name
     shutil.rmtree(out, ignore_errors=True)
-    cmd = [sys.executable, "-m", "killerbeez_tpu_torch.fuzzer",
-           *cli_argv(out, *args, instr=instr)]
+    before = dict(LAUNCHES)
+    for k in LAUNCHES:
+        LAUNCHES[k] = 0
+    log = io.StringIO()
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True)
+    try:
+        with contextlib.redirect_stderr(log):
+            rc = cli_main(cli_argv(out, *args, instr=instr, **mut))
+    finally:
+        run = dict(LAUNCHES)
+        for k in LAUNCHES:
+            LAUNCHES[k] = before.get(k, 0) + run[k]
+        gc.collect()
     wall = time.perf_counter() - t0
-    log = proc.stderr
+    log = log.getvalue()
     (OUT / f"{name}.log").write_text(log)
-    if proc.returncode != 0:
-        raise RuntimeError(f"CLI {name} exited {proc.returncode}:\n"
-                           f"{log[-3000:]}")
+    if rc != 0:
+        raise RuntimeError(f"CLI {name} exited {rc}:\n{log[-3000:]}")
     print(f"cli {name}: exit 0 in {wall:.1f} s wall", flush=True)
-    m = re.search(r"kernel launches: (\{.*\})", log)
-    for k, v in (json.loads(m.group(1)) if m else {}).items():
+    for k, v in run.items():
         CLI_LAUNCHES[k] = CLI_LAUNCHES.get(k, 0) + v
     return log, out
 
@@ -341,17 +381,18 @@ def stats_counters(out: Path):
 
 def flagship(name, *args, batches=FLAGSHIP_BATCHES, engine="cuda_fused",
              need=("kbz_fuzz_kernel", "kbz_vm_kernel"), instr="jit_harness",
-             iopts=None):
+             iopts=None, **mut):
     """The main path's CLI run; ``need`` names the kernels it must
-    launch; ``iopts`` replaces the flagship's instrumentation options.
-    Returns (launches, execs/s, output dir)."""
+    launch; ``iopts`` replaces the flagship's instrumentation options;
+    ``mut`` picks another mutator (cli_argv).  Returns (launches,
+    execs/s, output dir)."""
     n_iter = batches * B
     if iopts is None:
         iopts = {"target": "tlvstack_vm", "engine": engine,
                  "novelty": "throughput"}
     log, out = run_cli(
         ["-b", str(B), "-n", str(n_iter), "-i", json.dumps(iopts), *args],
-        name, instr=instr)
+        name, instr=instr, **mut)
     m = re.search(r"kernel launches: (\{.*\})", log)
     if not m:
         raise AssertionError("the CLI printed no kernel launch counts")
@@ -377,9 +418,10 @@ def flagship(name, *args, batches=FLAGSHIP_BATCHES, engine="cuda_fused",
     return launches, float(eps.group(3)), out
 
 
-def inprocess(out: Path, *args, instr="jit_harness"):
-    """The port's CLI in this process with PIPELINE_DEPTH = 1; returns
-    what the card and the CPU must agree on."""
+def inprocess(out: Path, *args, instr="jit_harness", **mut):
+    """The port's CLI in this process with PIPELINE_DEPTH = 1 (``mut``:
+    cli_argv's mutator, mopts, seed); returns what the card and the CPU
+    must agree on."""
     from killerbeez_tpu_torch.fuzzer.cli import main as cli_main
     from killerbeez_tpu_torch.fuzzer.loop import Fuzzer
     shutil.rmtree(out, ignore_errors=True)
@@ -387,7 +429,7 @@ def inprocess(out: Path, *args, instr="jit_harness"):
     Fuzzer.PIPELINE_DEPTH = 1
     try:
         rc = cli_main(cli_argv(out, "-isd", f"{out}.isd", "-msd",
-                               f"{out}.msd", *args, instr=instr))
+                               f"{out}.msd", *args, instr=instr, **mut))
     finally:
         Fuzzer.PIPELINE_DEPTH = depth
     if rc != 0:
@@ -1144,6 +1186,229 @@ def tool_runs():
           flush=True)
 
 
+# -- the mutators (phase 8) ---------------------------------------------
+
+#: phase 8c's full-width run of each unfused mutator, in batches
+MUTATOR_BATCHES = 48
+#: a stand-in radamsa for phase 8b: rot13 of its input, the same bytes
+#: on every call (the mutator passes "-s <seed>", which it ignores)
+RADAMSA_FAKE = "#!/bin/sh\nexec tr 'A-Za-z' 'N-ZA-Mn-za-m'\n"
+
+
+def mutator_files():
+    """Phase 8's inputs, written to OUT: the splice partners, the 8-byte
+    head of the flagship seed (afl's deterministic stages are then 2740
+    iterations, which a 1024-lane CLI run passes), a two-part manager
+    seed and the stand-in radamsa."""
+    from killerbeez_tpu_torch.models.targets_cgc import tlvstack_vm_seed
+    from killerbeez_tpu_torch.utils.serialization import encode_mem_array
+    seed = tlvstack_vm_seed()
+    corpus = OUT / "splice_partners"
+    shutil.rmtree(corpus, ignore_errors=True)
+    corpus.mkdir(parents=True)
+    (corpus / "a").write_bytes(seed[::-1])
+    (corpus / "b").write_bytes(seed[:12] + b"\x02\x00\x07\x00" * 3)
+    files = {"corpus": corpus, "short": OUT / "seed_head8.bin",
+             "parts": OUT / "manager_seed.bin", "radamsa": OUT / "radamsa"}
+    files["short"].write_bytes(seed[:8])
+    files["parts"].write_bytes(
+        encode_mem_array([seed[:12], seed[12:]]).encode())
+    files["radamsa"].write_text(RADAMSA_FAKE)
+    files["radamsa"].chmod(0o755)
+    return files
+
+
+def mutator_cases(files):
+    """(label, mutator, options, seed file) of phases 8a and 8d."""
+    seed = OUT / "seed.bin"
+    keyed = {"seed": MUT_SEED}
+    return [
+        ("nop", "nop", {}, seed),
+        ("bit_flip 1", "bit_flip", {"num_bits": 1}, seed),
+        ("bit_flip 32", "bit_flip", {"num_bits": 32}, seed),
+        ("arithmetic", "arithmetic", {}, seed),
+        ("interesting_value", "interesting_value", {}, seed),
+        ("dictionary", "dictionary", {"target": "tlvstack_vm"}, seed),
+        ("zzuf", "zzuf", keyed, seed),
+        ("ni", "ni", keyed, seed),
+        ("honggfuzz", "honggfuzz", keyed, seed),
+        ("splice", "splice",
+         {**keyed, "corpus_dir": str(files["corpus"])}, seed),
+        ("afl", "afl", keyed, seed),
+        ("manager", "manager",
+         {"mutators": ["bit_flip", "havoc"],
+          "mutator_options": [None, keyed], "framed": 1}, files["parts"]),
+    ]
+
+
+def mutator_parity(files):
+    """8a: each mutator's mutate_batch on CUDA tensors against the CPU at
+    the flagship shape: B lanes (afl's from iteration 0 cross every
+    stage boundary into havoc; manager's bit_flip child runs out after
+    96 turns and havoc takes the rest), or the whole walk of a finite
+    mutator — bytes and lengths equal, no tolerance."""
+    from killerbeez_tpu_torch.mutators import mutator_factory
+    done = []
+    for label, name, opts, seed in mutator_cases(files):
+        got = {}
+        for dev in ("cuda", "cpu"):
+            m = mutator_factory(name, json.dumps(opts), seed.read_bytes(),
+                                device=dev)
+            n = min(B, m.remaining())
+            bufs, lens = m.mutate_batch(n)
+            got[dev] = (bufs.cpu(), lens.cpu())
+        if not (torch.equal(got["cuda"][0], got["cpu"][0])
+                and torch.equal(got["cuda"][1], got["cpu"][1])):
+            raise AssertionError(f"mutator {label}: the card's candidates "
+                                 "differ from the CPU's")
+        done.append(f"{label} ({n} lanes)")
+    print("mutators card == CPU (bytes and lengths, tolerance none): "
+          + ", ".join(done), flush=True)
+
+
+def mutator_cli_parity(files, vk):
+    """8b: the CLI on the card (engine cuda: kbz_vm_kernel over every
+    lane) against the CPU (engine torch) at -b 1024, in this process
+    with PIPELINE_DEPTH = 1, for every ported mutator but havoc (phase
+    4's): md5 sets, -isd, -msd, rotation picks and fuzzer_stats counters
+    equal.  A finite walk runs to its end (-n -1, exit 0, the walk's
+    total in -msd); the randomized ones at -fb 0 (4 batches) and at the
+    default -fb (9 batches: a rotation after 8); radamsa (the stand-in,
+    one process per candidate) one batch of 256, padded to 1024."""
+    from killerbeez_tpu_torch.mutators import mutator_factory
+    keyed = {"seed": MUT_SEED}
+    fb0, fbd = ["-fb", "0", "-n", "4096"], ["-n", "9216"]
+    cases = [
+        ("nop", {}, None, [["-n", "3072"]]),
+        ("bit_flip", {"num_bits": 1}, None, [[]]),
+        ("bit_flip", {"num_bits": 32}, None, [[]]),
+        ("arithmetic", {}, None, [[]]),
+        ("interesting_value", {}, None, [[]]),
+        ("dictionary", {"target": "tlvstack_vm"}, None, [[]]),
+        ("manager", {"mutators": ["bit_flip", "bit_flip"], "framed": 1},
+         files["parts"], [[]]),
+        ("zzuf", keyed, None, [fb0, fbd]),
+        ("ni", keyed, None, [fb0, fbd]),
+        ("honggfuzz", keyed, None, [fb0, fbd]),
+        ("splice", {**keyed, "corpus_dir": str(files["corpus"])}, None,
+         [fb0, fbd]),
+        ("afl", keyed, files["short"], [fb0, fbd]),
+        ("manager", {"mutators": ["bit_flip", "havoc"],
+                     "mutator_options": [None, keyed], "framed": 1},
+         files["parts"], [fb0, fbd]),
+        ("radamsa", {"path": str(files["radamsa"]), **keyed}, None,
+         [["-fb", "0", "-n", "256"]]),
+    ]
+    before = vk.LAUNCHES["kbz_vm_kernel_all"]
+    done = []
+    for i, (name, mopts, seed, runs) in enumerate(cases):
+        for j, extra in enumerate(runs):
+            got = {}
+            for dev, engine in (("cuda", "cuda"), ("cpu", "torch")):
+                iopts = {"target": "tlvstack_vm", "engine": engine}
+                got[dev] = inprocess(
+                    OUT / f"mut{i}_{name}_{j}_{dev}", "-b", "1024",
+                    "--device", dev, "-i", json.dumps(iopts), *extra,
+                    mutator=name, mopts=mopts, seed=seed)
+            if got["cuda"] != got["cpu"]:
+                diff = [k for k in got["cuda"]
+                        if got["cuda"][k] != got["cpu"][k]]
+                raise AssertionError(f"{name} CLI ({extra}): card and CPU "
+                                     f"differ in {diff}")
+            it = json.loads(got["cuda"]["msd"])["iteration"]
+            if not extra:
+                total = mutator_factory(
+                    name, json.dumps(mopts), Path(
+                        seed or OUT / "seed.bin").read_bytes(),
+                    device="cpu").get_total_iteration_count()
+                if it != total:
+                    raise AssertionError(f"{name}: the walk stopped at {it} "
+                                         f"of {total}")
+            done.append(f"{name}{'' if not extra else ' ' + ' '.join(extra)}"
+                        f": {len(got['cuda']['findings']['new_paths'])} new "
+                        f"paths, {it} iterations, "
+                        f"{len(got['cuda']['picks'])} picks")
+    launched = vk.LAUNCHES["kbz_vm_kernel_all"] - before
+    if launched <= 0:
+        raise AssertionError("the mutators' CLI runs never launched "
+                             "kbz_vm_kernel over all lanes")
+    print(f"mutator CLI parity (-b 1024, PIPELINE_DEPTH 1): card == CPU "
+          f"(md5 sets, -isd, -msd, picks, counters; {launched} "
+          "kbz_vm_kernel_all launches on the card): " + "; ".join(done),
+          flush=True)
+
+
+def mutator_flagships(card):
+    """8c: afl, zzuf and honggfuzz at -b 65536 on tlvstack_vm (engine
+    cuda, the default -fb, MUTATOR_BATCHES batches each) in turns with
+    the havoc cuda_fused flagship: havoc, afl, zzuf, honggfuzz, havoc.
+    Each exits 0 and writes findings; the unfused ones launch
+    kbz_vm_kernel over all lanes (each CLI run counts from 0).
+    Returns the unfused runs' launches."""
+    rates, launches = [], {}
+    for i, name in enumerate(("havoc", "afl", "zzuf", "honggfuzz",
+                              "havoc")):
+        if name == "havoc":
+            got, rate, _ = flagship(f"mut_flagship_havoc_{i}",
+                                    batches=MUTATOR_BATCHES)
+        else:
+            got, rate, _ = flagship(f"mut_flagship_{name}",
+                                    batches=MUTATOR_BATCHES, engine="cuda",
+                                    need=("kbz_vm_kernel_all",),
+                                    mutator=name)
+            launches[name] = got
+        rates.append(f"{name} {rate:.0f}")
+    print(f"mutator execs/s on {card} ({MUTATOR_BATCHES} batches of {B}, "
+          f"in turns): {', '.join(rates)}", flush=True)
+    return launches
+
+
+def mutator_stages(card, files, vk):
+    """8d: device ms per 65536-lane batch by stage (tools/timing: CUDA
+    events, median of 5 after a warm-up): each mutator's candidates for
+    iterations 0..B-1 (a finite walk runs past its end: the same work
+    per lane; manager's includes its host work), then kbz_vm_kernel over
+    every lane of afl's batch and its triage.  Returns {stage: ms}."""
+    import numpy as np
+    from killerbeez_tpu_torch.instrumentation import jit_harness as jh
+    from killerbeez_tpu_torch.models.targets import get_target
+    from killerbeez_tpu_torch.mutators import mutator_factory
+    from killerbeez_tpu_torch.ops.static_triage import make_static_maps
+    from killerbeez_tpu_torch.tools.timing import timed
+    its = np.arange(B, dtype=np.int64)
+    stages = {}
+    for label, name, opts, seed in mutator_cases(files):
+        m = mutator_factory(name, json.dumps(opts), seed.read_bytes(),
+                            device="cuda")
+        if name == "manager":
+            stages[label] = timed(lambda: m.mutate_batch(B), 5)
+        else:
+            stages[label] = timed(lambda: m._generate(its), 5)
+    afl = mutator_factory("afl", json.dumps({"seed": MUT_SEED}),
+                          (OUT / "seed.bin").read_bytes(), device="cuda")
+    bufs, lens = afl._generate(its)
+    dev = torch.device("cuda")
+    prog = get_target("tlvstack_vm")
+    vm_args = (torch.as_tensor(prog.instrs, device=dev),
+               torch.as_tensor(prog.edge_table, device=dev), bufs, lens,
+               prog.mem_size, prog.max_steps, prog.n_edges)
+    stages["kbz_vm_kernel (all lanes)"] = timed(
+        lambda: vk.run_batch(*vm_args), 5)
+    res = vk.run_batch(*vm_args)
+    u_slots, seg_id = (torch.as_tensor(a, device=dev)
+                       for a in make_static_maps(prog.edge_slot))
+    virgin = torch.full((prog.map_size,), 0xFF, dtype=torch.uint8,
+                        device=dev)
+    statuses = torch.where(res.status == 3, 1, res.status).to(torch.int32)
+    stages["triage"] = timed(lambda: jh._triage_counts(
+        res.counts, statuses, u_slots, seg_id, virgin, virgin, virgin,
+        False), 5)
+    print(f"mutator stages [ms per {B}-lane batch, median, {card}]: "
+          + ", ".join(f"{k} {v:.3f}" for k, v in stages.items()),
+          flush=True)
+    return stages
+
+
 class Phases:
     """Prints each phase's wall time as the next one starts."""
 
@@ -1523,21 +1788,35 @@ def main() -> int:
     phases.start("7e (tracer, showmap)")
     tool_runs()
 
-    # -- phase 8: the record -------------------------------------------
-    phases.start("8 (record)")
+    # -- phase 8: every mutator but grammar ----------------------------
+    phases.start("8a (mutators card == CPU)")
+    files = mutator_files()
+    mutator_parity(files)
+    phases.start("8b (mutator CLI parity)")
+    mutator_cli_parity(files, vk)
+    phases.start("8c (unfused mutators at full width)")
+    mut_launches = mutator_flagships(card)
+    phases.start("8d (mutator stages)")
+    mutator_stages(card, files, vk)
+
+    # -- phase 9: the record -------------------------------------------
+    phases.start("9 (record)")
     print(f"main-path launches: host-driven {launches}, -G 16 "
           f"{gen_launches}, --mesh 1,1 {mesh_launches[0]}, --mesh 1,1 -G "
           f"16 {mesh_launches[1]}, --mesh 1,1 engine cuda "
           f"{vm_all_launches}, ipt {ipt_launches}, edges {edges_launches}, "
-          f"rare-edge {rare_launches}; over this whole run: in this "
-          f"process {vk.LAUNCHES}, in its CLI subprocesses {CLI_LAUNCHES}",
+          f"rare-edge {rare_launches}, mutators {mut_launches}; over this "
+          f"whole run: {vk.LAUNCHES}, of which in its CLI runs "
+          f"{CLI_LAUNCHES}",
           flush=True)
     launches = {k: launches[k] + gen_launches[k] + mesh_launches[0][k]
                 + mesh_launches[1][k] + edges_launches[k] + rare_launches[k]
                 for k in launches}
     all_lanes = (vm_all_launches["kbz_vm_kernel_all"]
                  + ipt_launches["kbz_vm_kernel_all"]
-                 + rare_launches["kbz_vm_kernel_all"])
+                 + rare_launches["kbz_vm_kernel_all"]
+                 + sum(m["kbz_vm_kernel_all"]
+                       for m in mut_launches.values()))
     kernels = [
         {"name": "kbz_fuzz_kernel", "route": "cuda", "source": SOURCE,
          "replaces": f"{REF}:566", "launches": launches["kbz_fuzz_kernel"],

@@ -12,8 +12,8 @@ instead.  Asking for the card without one is an error, never a silent
 fall back to the CPU.
 
 Package map (the flagship fuzz loop, the CLI's default campaign, its
-device-resident generation loop, the mesh campaign and the trace
-surface):
+device-resident generation loop, the mesh campaign, the trace surface
+and every mutator but grammar):
   utils/            logging, JSON option parsing, state serialization
   models/           the KBVM bytecode VM (plain torch engines, with the
                     edge stream and the single-lane reference) + targets
@@ -22,10 +22,13 @@ surface):
                     generation loop (-G)
   csrc/             CUDA C++ sources of the kernels
   instrumentation/  jit_harness (with edge reporting), ipt
-  mutators/         havoc
+  mutators/         every mutator but grammar (havoc fuses into the
+                    VM kernel; the rest run unfused)
   drivers/          file
   corpus/           the corpus store and the seed schedulers
-  analysis/         the block CFG and the static edge prior
+  analysis/         the block CFG, the static edge prior and the
+                    dataflow analysis behind the auto-dictionary
+  stateful/         the sequence framing of the manager's framed mode
   telemetry/        metrics registry, stats files, event log, span ring
   resilience/       chaos points, checkpoints, the dispatch watchdog
   parallel/         the mesh campaign (--mesh dp,mp)

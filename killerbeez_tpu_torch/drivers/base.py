@@ -7,14 +7,19 @@ get_last_input.  ``test_next_input`` returns the FUZZ_* verdict or
 ``test_batch(n)`` mutates and executes ``n`` candidates in one device
 step when both the mutator and the instrumentation batch; with a
 fusable mutator the instrumentation generates the candidates inside
-the VM kernel.  Lanes never depend on the batch around them, so no
-batch is padded.
+the VM kernel.  A short unfused batch may be padded to a fixed lane
+count with copies of lane 0, as the JAX package pads its tail batches:
+the copies are coverage no-ops, the loop triages only the real lanes,
+and the instrumentation counts every executed lane, as the JAX
+package's does.
 """
 
 from __future__ import annotations
 
 import contextlib
 from typing import Any, Dict, NamedTuple, Optional
+
+import torch
 
 from .. import resolve_device
 from ..instrumentation.base import BatchResult, Instrumentation
@@ -106,9 +111,11 @@ class Driver:
         wants = getattr(self.instrumentation, "wants_fused", None)
         return wants is not None and wants(self.mutator)
 
-    def test_batch(self, n: int) -> BatchOutcome:
+    def test_batch(self, n: int, pad_to: Optional[int] = None
+                   ) -> BatchOutcome:
         """Mutate + execute ``n`` candidates; results stay on the
-        device."""
+        device.  ``pad_to`` pads an unfused batch of fewer lanes with
+        copies of lane 0 (the fused kernel runs only ``n``)."""
         if not self.supports_batch:
             raise RuntimeError(f"{self.name}: batch path unavailable")
         if self._wants_fused():
@@ -121,6 +128,10 @@ class Driver:
         else:
             with self._span("mutate"):
                 bufs, lens = self.mutator.mutate_batch(n)
+            if pad_to is not None and pad_to > n:
+                pad = pad_to - n
+                bufs = torch.cat([bufs, bufs[:1].expand(pad, -1)])
+                lens = torch.cat([lens, lens[:1].expand(pad)])
             with self._span("execute"):
                 result = self.instrumentation.run_batch(bufs, lens)
             compact = None

@@ -897,6 +897,9 @@ class Fuzzer:
                 room = min(self._remaining(n_iterations),
                            mut.remaining(), self.batch_size)
                 if room <= 0:
+                    if mut.remaining() <= 0:
+                        INFO_MSG("mutator exhausted after %d iterations",
+                                 self.stats.iterations)
                     break
                 if room < quantum:
                     _quantum_warning(room, quantum)
@@ -950,7 +953,11 @@ class Fuzzer:
                     lane = self._trace_lane(tr)
                 with self._wd_guard("dispatch"):
                     chaos_point("device_dispatch")
-                    out = self.driver.test_batch(room)
+                    # a short tail batch is padded to the batch size,
+                    # as the JAX package pads it: the instrumentation
+                    # state counts the executed lanes
+                    out = self.driver.test_batch(room,
+                                                 pad_to=self.batch_size)
                 out, packed = self._prefetch(out)
                 self.stats.iterations += room
                 if tr is not None:

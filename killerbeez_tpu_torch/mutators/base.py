@@ -8,13 +8,15 @@ exhausted.
 
 ``mutate_batch(n)`` generates candidates for iterations
 ``[it, it+n)`` in one device call as ``(uint8[n, L], int32[n])``
-tensors on the mutator's device; ``mutate`` is the n==1 case.
+tensors on the mutator's device; ``mutate`` is the n==1 case.  The
+seed is uploaded once per ``set_input`` and the iteration numbers are
+made on the device, so a batch copies nothing from the host.
 """
 
 from __future__ import annotations
 
 import json
-from typing import Any, Dict, List, Optional, Tuple
+from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -24,8 +26,28 @@ from ..utils.options import format_help, parse_options
 from ..utils.serialization import b64, unb64
 
 
+# mutate_extended flags (reference api_mutator.tex:89-119)
+MUTATE_THREAD_SAFE = 1 << 30
+MUTATE_MULTIPLE_INPUTS = 1 << 31
+MUTATE_INDEX_MASK = 0x00FFFFFF
+
+
 def _round_up(n: int, m: int) -> int:
     return ((n + m - 1) // m) * m
+
+
+def pack_byte_rows(rows: Sequence[bytes]) -> Tuple[np.ndarray, np.ndarray]:
+    """Pack variable-length byte strings into the framework's batch
+    shape: (uint8[n, L] zero-padded, int32[n] lengths), L rounded up
+    to 8 with a floor of 8 (the shared candidate-tensor convention)."""
+    max_len = max((len(r) for r in rows), default=1)
+    L = max(8, _round_up(max_len, 8))
+    bufs = np.zeros((len(rows), L), dtype=np.uint8)
+    lens = np.zeros((len(rows),), dtype=np.int32)
+    for i, r in enumerate(rows):
+        bufs[i, :len(r)] = np.frombuffer(r, dtype=np.uint8)
+        lens[i] = len(r)
+    return bufs, lens
 
 
 class Mutator:
@@ -90,6 +112,48 @@ class Mutator:
         (raises ValueError if the new seed does not fit)."""
         self._set_seed_buffer(bytes(input_bytes), keep_length)
         self.iteration = 0
+
+    _seed_cache = None
+
+    def _seed_on_device(self) -> torch.Tensor:
+        """``seed_buf`` on the mutator's device, copied once per seed
+        buffer (each ``set_input`` and each corpus-feedback rotation
+        makes a new one)."""
+        if self._seed_cache is None or \
+                self._seed_cache[0] is not self.seed_buf:
+            self._seed_cache = (self.seed_buf, self._upload(self.seed_buf))
+        return self._seed_cache[1]
+
+    def _upload(self, arr: np.ndarray) -> torch.Tensor:
+        """A copy of ``arr`` on the device that never waits for it: a
+        copy from pageable memory would wait for every batch already
+        queued, so the bytes go through a fresh pinned staging tensor
+        with a non-blocking copy on the kernels' stream, ordered after
+        the batches that still read the old data.  The staging tensor
+        can go at once: PyTorch's pinned-memory allocator records an
+        event for the copy and reuses the block only once it has
+        completed."""
+        t = torch.from_numpy(np.ascontiguousarray(arr))
+        if self.device.type != "cuda":
+            return t
+        return t.pin_memory().to(self.device, non_blocking=True)
+
+    @staticmethod
+    def _run_start(its: np.ndarray) -> int:
+        """The first of ``its``, which must be a run of consecutive
+        iteration numbers (what ``peek_iterations`` gives)."""
+        start = int(its[0])
+        if not np.array_equal(its, np.arange(start, start + len(its))):
+            raise ValueError("iterations must be a consecutive run")
+        return start
+
+    def _its_on_device(self, its: np.ndarray) -> torch.Tensor:
+        """Absolute iteration numbers (a consecutive run) as an int64
+        tensor on the device, made there from the first, copying
+        nothing from the host."""
+        start = self._run_start(its)
+        return torch.arange(start, start + len(its), dtype=torch.int64,
+                            device=self.device)
 
     #: focus byte masks (the crack stage / learn tier) are not ported
     focus_positions = None
@@ -156,8 +220,20 @@ class Mutator:
             out = out[:max_size]
         return out
 
+    def mutate_extended(self, flags: int = 0,
+                        max_size: Optional[int] = None) -> Optional[bytes]:
+        """Flagged mutate (reference api_mutator.tex:89-119).
+        MUTATE_MULTIPLE_INPUTS selects a part on multipart mutators;
+        single-input mutators accept only part 0."""
+        if flags & MUTATE_MULTIPLE_INPUTS:
+            part = flags & MUTATE_INDEX_MASK
+            if part != 0:
+                raise ValueError(
+                    f"{self.name}: single-input mutator, part {part} invalid")
+        return self.mutate(max_size)
+
     def get_input_info(self) -> Tuple[int, List[int]]:
-        """(num_inputs, per-input sizes) — single-input."""
+        """(num_inputs, per-input sizes) — single-input by default."""
         return 1, [self.max_length]
 
     # -- state ----------------------------------------------------------

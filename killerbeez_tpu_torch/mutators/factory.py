@@ -4,10 +4,22 @@ from __future__ import annotations
 
 from typing import Dict, Optional, Type
 
+from .afl import AflMutator
 from .base import Mutator
-from .randomized import HavocMutator
+from .deterministic import (
+    ArithmeticMutator, BitFlipMutator, DictionaryMutator,
+    InterestingValueMutator, NopMutator,
+)
+from .multipart import ManagerMutator
+from .radamsa import RadamsaMutator
+from .randomized import (
+    HavocMutator, HonggfuzzMutator, NiMutator, SpliceMutator, ZzufMutator,
+)
 
 _REGISTRY: Dict[str, Type[Mutator]] = {}
+
+#: mutators of the JAX package that this package has not ported yet
+NOT_PORTED = ("grammar",)
 
 
 def register_mutator(cls: Type[Mutator]) -> Type[Mutator]:
@@ -15,7 +27,11 @@ def register_mutator(cls: Type[Mutator]) -> Type[Mutator]:
     return cls
 
 
-register_mutator(HavocMutator)
+for _cls in (NopMutator, BitFlipMutator, ArithmeticMutator,
+             InterestingValueMutator, DictionaryMutator, HavocMutator,
+             ZzufMutator, NiMutator, HonggfuzzMutator, SpliceMutator,
+             AflMutator, ManagerMutator, RadamsaMutator):
+    register_mutator(_cls)
 
 
 def mutator_names() -> list[str]:
@@ -25,6 +41,8 @@ def mutator_names() -> list[str]:
 def mutator_factory(name: str, options: Optional[str] = None,
                     input_bytes: bytes = b"", device="cuda") -> Mutator:
     """Create a mutator by name on ``device``."""
+    if name in NOT_PORTED:
+        raise ValueError(f"mutator {name!r} is not ported yet")
     if name not in _REGISTRY:
         raise ValueError(
             f"unknown mutator {name!r}; ported so far: "

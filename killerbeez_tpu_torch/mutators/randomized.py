@@ -1,19 +1,22 @@
-"""Randomized mutators (this slice: havoc).
+"""Randomized mutators: havoc, zzuf, ni, honggfuzz, splice.
 
 Each lane's PRNG key is derived from (base seed, absolute iteration
 index) with the JAX-compatible threefry ``fold_in`` (ops/prng.py), so
 candidate i is the same bytes whether generated alone, inside any
 batch, or inside the fused kernel — and the same bytes the JAX
-package generates.
+package generates.  Every draw comes from ``ops/prng.py``, never from
+torch's own generators.
 """
 
 from __future__ import annotations
 
+import os
+
 import numpy as np
 import torch
 
+from ..ops import mutate_core as mc
 from ..ops import prng
-from ..ops.mutate_core import havoc_at
 from ..ops.vm_kernel import havoc_words_for_keys
 from .base import Mutator
 
@@ -34,9 +37,7 @@ class _KeyedMutator(Mutator):
         return self._key_cache[1]
 
     def _keys(self, its: np.ndarray) -> torch.Tensor:
-        its = torch.as_tensor(np.asarray(its, dtype=np.int64),
-                              device=self.device)
-        return prng.fold_in(self._base_key(), its)
+        return prng.fold_in(self._base_key(), self._its_on_device(its))
 
 
 class HavocMutator(_KeyedMutator):
@@ -53,38 +54,10 @@ class HavocMutator(_KeyedMutator):
         if not (1 <= sp <= 7):
             raise ValueError("stack_pow2 must be in 1..7")
 
-    _seed_cache = None
-
-    def _seed_on_device(self) -> torch.Tensor:
-        """``seed_buf`` on the mutator's device, copied once per seed
-        buffer (each corpus-feedback rotation makes a new one)."""
-        if self._seed_cache is None or \
-                self._seed_cache[0] is not self.seed_buf:
-            self._seed_cache = (self.seed_buf, self._upload(self.seed_buf))
-        return self._seed_cache[1]
-
-    def _upload(self, buf: np.ndarray) -> torch.Tensor:
-        """A copy of ``buf`` on the device that never waits for it: a
-        copy from pageable memory would wait for every batch already
-        queued, so the bytes go through a fresh pinned staging tensor
-        with a non-blocking copy on the kernels' stream, ordered after
-        the batches that still read the old seed.  The staging tensor
-        can go at once: PyTorch's pinned-memory allocator records an
-        event for the copy and reuses the block only once it has
-        completed."""
-        if self.device.type != "cuda":
-            return torch.as_tensor(buf)
-        staging = torch.empty(buf.shape, dtype=torch.uint8,
-                              pin_memory=True)
-        staging.numpy()[:] = buf
-        dev = torch.empty(buf.shape, dtype=torch.uint8, device=self.device)
-        dev.copy_(staging, non_blocking=True)
-        return dev
-
     def _generate(self, its):
         sp = int(self.options["stack_pow2"])
         words = havoc_words_for_keys(self._keys(its), sp)
-        return havoc_at(self._seed_on_device(), self.seed_len, words, sp)
+        return mc.havoc_at(self._seed_on_device(), self.seed_len, words, sp)
 
     def fused_spec(self):
         """What a fused mutate+execute kernel needs to generate this
@@ -94,3 +67,128 @@ class HavocMutator(_KeyedMutator):
         _keys."""
         return (self._seed_on_device(), self.seed_len, self._base_key(),
                 int(self.options["stack_pow2"]))
+
+
+class ZzufMutator(_KeyedMutator):
+    """zzuf-style: flips each bit with probability ``ratio_bits``."""
+    name = "zzuf"
+    OPTION_SCHEMA = {"ratio_bits": float}
+    OPTION_DESCS = {"ratio_bits": "per-bit flip probability "
+                                  "(default 0.004, zzuf's default)"}
+    DEFAULTS = {"ratio_bits": 0.004}
+
+    def __init__(self, options, input_bytes, device="cuda"):
+        super().__init__(options, input_bytes, device=device)
+        r = float(self.options["ratio_bits"])
+        if not (0.0 < r <= 1.0):
+            raise ValueError("ratio_bits must be in (0, 1]")
+
+    def _generate(self, its):
+        return mc.zzuf_at(self._seed_on_device(), self.seed_len,
+                          self._keys(its),
+                          float(self.options["ratio_bits"]))
+
+
+class NiMutator(_KeyedMutator):
+    """ni-style structure-blind chunk shuffler: swaps/duplicates
+    aligned chunks of the seed plus light byte noise."""
+    name = "ni"
+    OPTION_SCHEMA = {"chunk_size": int}
+    OPTION_DESCS = {"chunk_size": "chunk granularity in bytes (default 4)"}
+    DEFAULTS = {"chunk_size": 4}
+
+    def __init__(self, options, input_bytes, device="cuda"):
+        super().__init__(options, input_bytes, device=device)
+        if int(self.options["chunk_size"]) < 1:
+            raise ValueError("chunk_size must be >= 1")
+
+    def _generate(self, its):
+        cs = int(self.options["chunk_size"])
+        keys = self._keys(its)
+        buf, length = mc.lanes(self._seed_on_device(), self.seed_len,
+                                keys.shape[0])
+        L = buf.shape[-1]
+        ks = prng.split(keys, 5)
+        # the four integer draws (two chunks, a noise position, a noise
+        # byte) as one randint over four of the split keys
+        n_chunks = (length // cs).clamp(min=1)
+        hi = torch.stack([n_chunks, n_chunks, length.clamp(min=1),
+                          torch.full_like(length, 256)], dim=-1)
+        lo = torch.zeros_like(hi)
+        lo[:, 3] = 1
+        a, b, pos, val = (d[:, None] for d in
+                          prng.randint(ks[:, :4], lo, hi).unbind(-1))
+        a, b = a * cs, b * cs
+        idx = torch.arange(L, device=buf.device)[None, :]
+        in_a = (idx >= a) & (idx < a + cs)
+        in_b = (idx >= b) & (idx < b + cs)
+        from_b = buf.gather(1, (b + (idx - a)).clamp(0, L - 1))
+        from_a = buf.gather(1, (a + (idx - b)).clamp(0, L - 1))
+        swapped = torch.where(in_a, from_b, torch.where(in_b, from_a, buf))
+        # light noise: one random byte xor'ed in (the JAX scatter drops
+        # a position outside the buffer; the compare-select does too)
+        noisy = torch.where(idx == pos, swapped ^ val.to(torch.uint8),
+                            swapped)
+        use_noise = prng.bernoulli(ks[:, 4], 0.5, 1)
+        return torch.where(use_noise, noisy, swapped), length
+
+
+class HonggfuzzMutator(_KeyedMutator):
+    """honggfuzz-style mangle: run-oriented byte-set/copy/magic/inc/dec."""
+    name = "honggfuzz"
+    OPTION_SCHEMA = {"max_ops": int}
+    OPTION_DESCS = {"max_ops": "max stacked mangle ops (default 8)"}
+    DEFAULTS = {"max_ops": 8}
+
+    def __init__(self, options, input_bytes, device="cuda"):
+        super().__init__(options, input_bytes, device=device)
+        if not (1 <= int(self.options["max_ops"]) <= 64):
+            raise ValueError("max_ops must be in 1..64")
+
+    def _generate(self, its):
+        return mc.mangle_at(self._seed_on_device(), self.seed_len,
+                            self._keys(its), int(self.options["max_ops"]))
+
+
+class SpliceMutator(_KeyedMutator):
+    """Splices the seed with corpus files at random cut points."""
+    name = "splice"
+    OPTION_SCHEMA = {"corpus": list, "corpus_dir": str}
+    OPTION_DESCS = {
+        "corpus": "inline list of base64 or plain-string second inputs",
+        "corpus_dir": "directory of files to splice with",
+    }
+
+    def __init__(self, options, input_bytes, device="cuda"):
+        super().__init__(options, input_bytes, device=device)
+        partners = [item.encode() if isinstance(item, str) else bytes(item)
+                    for item in self.options.get("corpus", [])]
+        if "corpus_dir" in self.options:
+            d = self.options["corpus_dir"]
+            for fn in sorted(os.listdir(d)):
+                p = os.path.join(d, fn)
+                if os.path.isfile(p):
+                    with open(p, "rb") as f:
+                        partners.append(f.read())
+        partners = [p for p in partners if p]
+        if not partners:
+            raise ValueError("splice mutator needs corpus/corpus_dir")
+        L = self.max_length
+        arr = np.zeros((len(partners), L), dtype=np.uint8)
+        lens = np.zeros(len(partners), dtype=np.int32)
+        for i, p in enumerate(partners):
+            p = p[:L]
+            arr[i, :len(p)] = np.frombuffer(p, dtype=np.uint8)
+            lens[i] = len(p)
+        self.partners, self.partner_lens = arr, lens
+        # the partner table goes to the device once
+        self._partners_on = (self._upload(arr), self._upload(lens))
+
+    def _generate(self, its):
+        pbufs, plens = self._partners_on
+        keys = self._keys(its)
+        sub = prng.split(keys, 2)
+        j = prng.randint(sub[:, 0], 0, pbufs.shape[0]).clamp(
+            0, pbufs.shape[0] - 1)
+        return mc.splice_at(self._seed_on_device(), self.seed_len,
+                            pbufs[j], plens[j], sub[:, 1])

@@ -14,7 +14,17 @@ module reproduces ``jax/_src/prng.py`` as installed (jax 0.9.0, where
   * ``fold_in(k, d)``   ``threefry2x32(k, [0], [d])`` -> new key;
   * ``bits(k, shape)``  counts are the row-major flat index as a
                         64-bit integer split into (hi, lo) words;
-                        the output word is ``x0 ^ x1`` of the hash.
+                        the output word is ``x0 ^ x1`` of the hash;
+  * ``split(k, n)``     the same counts for shape ``(n,)``, but BOTH
+                        output words make key i;
+  * ``randint``         ``jax.random.randint`` for shape ``()`` in
+                        int32: two split keys draw the high and low
+                        words, folded with ``(2**16 % span)**2 %
+                        span`` in uint32 arithmetic;
+  * ``uniform``         float32: ``(bits >> 9) | 0x3F800000`` bit-cast,
+                        minus 1.0;
+  * ``bernoulli``       ``uniform < p`` compared in float32 (a Python
+                        float probability becomes float32 in JAX).
 
 torch has few uint32 operations, so uint32 values travel in int64
 tensors, masked to 32 bits after every operation that can carry.
@@ -23,6 +33,7 @@ A key is an int64 tensor ``[..., 2]`` holding the two uint32 words.
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 M32 = 0xFFFFFFFF
@@ -50,17 +61,27 @@ def threefry2x32(k0, k1, x0, x1):
 
 
 def key(seed: int, device="cpu") -> torch.Tensor:
-    """``jax.random.key(seed)`` as raw key data, int64[2]."""
-    return torch.tensor([0, int(seed) & M32], dtype=torch.int64,
-                        device=device)
+    """``jax.random.key(seed)`` as raw key data, int64[2].  The words
+    are filled on the device (a copy from the host would wait for the
+    card's queued work)."""
+    k = torch.zeros(2, dtype=torch.int64, device=device)
+    k[1:].fill_(int(seed) & M32)       # a kernel argument, not a copy
+    return k
 
 
 def fold_in(k: torch.Tensor, data) -> torch.Tensor:
-    """``jax.random.fold_in`` of each uint32 in ``data`` (int64
-    tensor, any shape) into key ``k`` (int64[2]).  Returns int64
-    ``[*data.shape, 2]`` keys."""
-    d = torch.as_tensor(data, dtype=torch.int64, device=k.device) & M32
-    o0, o1 = threefry2x32(k[0], k[1], torch.zeros_like(d), d)
+    """``jax.random.fold_in`` of ``data`` into key ``k``: either one
+    key (int64[2]) and a tensor of uint32s (int64, any shape), giving
+    ``[*data.shape, 2]`` keys, or keys ``[..., 2]`` and one Python
+    int folded into each, giving ``[..., 2]``.  A Python int reaches
+    the device as a kernel argument: nothing is copied."""
+    if isinstance(data, int):
+        o0, o1 = threefry2x32(k[..., 0], k[..., 1], 0, data & M32)
+    else:
+        d = torch.as_tensor(data, dtype=torch.int64,
+                            device=k.device) & M32
+        o0, o1 = threefry2x32(k[..., 0], k[..., 1], torch.zeros_like(d),
+                              d)
     return torch.stack([o0, o1], dim=-1)
 
 
@@ -73,3 +94,54 @@ def bits(keys: torch.Tensor, n: int) -> torch.Tensor:
     lo = torch.arange(n, dtype=torch.int64, device=keys.device)
     o0, o1 = threefry2x32(k0, k1, torch.zeros_like(lo), lo)
     return o0 ^ o1
+
+
+def split(keys: torch.Tensor, n: int) -> torch.Tensor:
+    """``jax.random.split(k, n)`` for every key in ``keys`` (int64
+    ``[..., 2]``).  Returns int64 ``[..., n, 2]``."""
+    i = torch.arange(n, dtype=torch.int64, device=keys.device)
+    o0, o1 = threefry2x32(keys[..., 0:1], keys[..., 1:2],
+                          torch.zeros_like(i), i)
+    return torch.stack([o0, o1], dim=-1)
+
+
+def wrap_i32(x: torch.Tensor) -> torch.Tensor:
+    """int64 values as int32 arithmetic leaves them (wrapping), as JAX's
+    int32 casts and sums do."""
+    return ((x + 2**31) & M32) - 2**31
+
+
+def randint(keys: torch.Tensor, minval, maxval) -> torch.Tensor:
+    """``jax.random.randint(k, (), minval, maxval)`` (dtype int32) for
+    every key in ``keys`` (int64 ``[..., 2]``); ``minval`` and
+    ``maxval`` are int32 values, Python ints or int64 tensors that
+    broadcast against the keys' batch shape.  A span of ``maxval <=
+    minval`` returns ``minval``.  Returns int64 ``[...]``."""
+    higher, lower = bits(split(keys, 2), 1)[..., 0].unbind(-1)
+    if isinstance(minval, int) and isinstance(maxval, int):
+        span = 1 if maxval <= minval else (maxval - minval) & M32
+    else:
+        span = torch.where(maxval <= minval, 1, (maxval - minval) & M32)
+    # (2**32 * higher + lower) % span without a 64-bit remainder, in
+    # uint32 arithmetic that wraps as JAX's does
+    mult = (2**16) % span
+    mult = ((mult * mult) & M32) % span
+    off = ((((higher % span) * mult) & M32) + lower % span) & M32
+    return wrap_i32(minval + off % span)
+
+
+def uniform(keys: torch.Tensor, n: int) -> torch.Tensor:
+    """``jax.random.uniform(k, shape, float32)`` in [0, 1) for every
+    key, with ``n`` = prod(shape) values in row-major order.  Returns
+    float32 ``[..., n]``."""
+    f = (bits(keys, n) >> 9) | 0x3F800000
+    return f.to(torch.int32).view(torch.float32) - 1.0
+
+
+def bernoulli(keys: torch.Tensor, p: float, n: int) -> torch.Tensor:
+    """``jax.random.bernoulli(k, p, shape)`` (the default mode) for
+    every key, ``n`` = prod(shape) draws: ``uniform < p`` in float32.
+    Returns bool ``[..., n]``."""
+    # p rounded to float32 on the host: compared as a Python scalar it
+    # reaches the kernel as an argument, with nothing copied
+    return uniform(keys, n) < float(np.float32(p))

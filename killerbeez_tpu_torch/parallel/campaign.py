@@ -160,7 +160,10 @@ class ShardedCampaignDriver(Driver):
         seed, seed_len, _key, _sp = self.mutator.fused_spec()
         return seed, int(seed_len)
 
-    def test_batch(self, n: int) -> BatchOutcome:
+    def test_batch(self, n: int, pad_to: Optional[int] = None
+                   ) -> BatchOutcome:
+        # mesh batches are always whole (checked), so pad_to has
+        # nothing to pad
         self._check_full_batch(n)
         mut = self.mutator
         # the RAW absolute mutator iteration is the PRNG counter (a

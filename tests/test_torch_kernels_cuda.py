@@ -473,3 +473,51 @@ def test_make_mesh_refuses_more_shards_than_cards(cuda, tmp_path, capsys):
                  "-b", str(64 * (n + 1)), "-n", str(64 * (n + 1)),
                  "--mesh", f"{n + 1},1"]) == 2
     assert f"need {n + 1} devices, have {n}" in capsys.readouterr().err
+
+
+MUTATOR_CASES = [
+    ("nop", None), ("bit_flip", '{"num_bits": 1}'),
+    ("bit_flip", '{"num_bits": 32}'), ("arithmetic", None),
+    ("interesting_value", None), ("dictionary", '{"target": "tlvstack_vm"}'),
+    ("havoc", '{"seed": 3}'), ("zzuf", '{"seed": 3}'), ("ni", '{"seed": 3}'),
+    ("honggfuzz", '{"seed": 3}'), ("splice", None), ("afl", '{"seed": 3}'),
+]
+
+
+@pytest.mark.parametrize("name,opts", MUTATOR_CASES)
+def test_mutators_never_wait_for_the_card(name, opts, cuda, tmp_path):
+    """Each randomized and deterministic mutator on the card: a seed
+    swap and batches (afl's across its last deterministic stage into
+    havoc) under sync debug mode "error" — a copy from pageable memory,
+    a ``.item()`` or a ``nonzero`` would raise — and the same bytes as
+    on the CPU.  manager and radamsa make their candidates on the host
+    by design."""
+    from killerbeez_tpu_torch.mutators import mutator_factory
+    seed = targets_cgc.tlvstack_vm_seed()
+    if name == "splice":
+        (tmp_path / "a").write_bytes(seed[::-1])
+        (tmp_path / "b").write_bytes(seed[:9] + b"\xff" * 30)
+        opts = '{"seed": 3, "corpus_dir": "%s"}' % tmp_path
+    muts = {dev: mutator_factory(name, opts, seed, device=dev)
+            for dev in ("cuda", "cpu")}
+    m = muts["cuda"]
+    m.mutate_batch(64)        # first use: tables, the base key, the seed
+    torch.cuda.synchronize()
+    swapped = seed[:20] + seed[:7]
+    start = 12000 if name == "afl" else 0        # afl: det_total 12024
+    got = []
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        m.set_input(swapped, keep_length=True)
+        m.iteration = start
+        for n in (1000, 77):
+            if m.remaining():
+                got.append(m.mutate_batch(min(n, m.remaining())))
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    ref = muts["cpu"]
+    ref.set_input(swapped, keep_length=True)
+    ref.iteration = start
+    for bufs, lens in got:
+        rb, rl = ref.mutate_batch(bufs.shape[0])
+        assert torch.equal(bufs.cpu(), rb) and torch.equal(lens.cpu(), rl)
