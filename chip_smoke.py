@@ -125,6 +125,20 @@ It builds the CUDA kernels from ``killerbeez_tpu_torch/csrc`` and:
      launches — with each run's execs/s beside the card's name and
      power limit; (d) device ms per 65536-lane batch by stage: each
      mutator's candidates, ``kbz_vm_kernel`` over every lane, triage;
+  10. (run before the record) the host-execution tier, which launches
+     no kernel: it builds ``native/`` and the corpus fixtures ``test``,
+     ``test-plain``, ``hang`` and ``network_server`` with make into
+     ``build/torch_native/``; (a) card == CPU through ``cli.main`` at
+     ``PIPELINE_DEPTH = 1``: ``file return_code bit_flip -n 32 -ss
+     'ABC@'`` (the crash) and ``stdin afl honggfuzz`` from 'Azzz' at
+     ``-b 64`` (two new paths, a rotation); (b) afl's batch triage of
+     4096 real host bitmaps with ``device_triage`` 1 on the card ==
+     the same torch path on the CPU == the numpy path (rets, uc, uh,
+     three maps), each timed; (c) ``stdin afl havoc -b 4096`` execs/s
+     with ``device_triage`` 0 and 1 and ``workers`` 8 and 1 in turns,
+     with the share of each run spent waiting for the candidates' host
+     copies; (d) ``-dt`` card == CPU (``.info`` text) and one ``ipt``
+     ``qemu_mode`` batch on the card;
   9. prints one ``{"kernels": [...]}`` line (launches: the first
      host-driven, the first ``-G 16``, the first mesh, the first edges
      and the first rare-edge flagship runs together; the all-lanes
@@ -1409,6 +1423,249 @@ def mutator_stages(card, files, vk):
     return stages
 
 
+# -- the host-execution tier (phase 10) ----------------------------------
+
+#: lanes of phase 10's host batches: real processes, one exec each
+HOST_B = 4096
+#: phase 10's corpus fixtures, built by the port into build/torch_native
+HOST_FIXTURES = ("test", "test-plain", "hang", "network_server")
+
+
+def host_build():
+    """Builds native/ and HOST_FIXTURES with make into
+    build/torch_native/ (the port's own build); returns {name: path}."""
+    from killerbeez_tpu_torch.native import build
+    t0 = time.perf_counter()
+    build.build_corpus(HOST_FIXTURES)
+    print(f"native + corpus fixtures built into {build.BUILD_DIR}: "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    return {n: build.corpus_path(n) for n in HOST_FIXTURES}
+
+
+def host_run(out: Path, argv, device, depth=1):
+    """The port's CLI in this process on a host target, with
+    ``Fuzzer.PIPELINE_DEPTH = depth`` (None: the default); returns
+    (what the card and the CPU must agree on, the log)."""
+    from killerbeez_tpu_torch.fuzzer.cli import main as cli_main
+    from killerbeez_tpu_torch.fuzzer.loop import Fuzzer
+    shutil.rmtree(out, ignore_errors=True)
+    args = [*argv, "-o", str(out), "-isd", f"{out}.isd", "-l",
+            '{"level": 1}', "--device", device]
+    saved = Fuzzer.PIPELINE_DEPTH
+    Fuzzer.PIPELINE_DEPTH = depth or saved
+    log = io.StringIO()
+    try:
+        with contextlib.redirect_stderr(log):
+            rc = cli_main(args)
+    finally:
+        Fuzzer.PIPELINE_DEPTH = saved
+    log = log.getvalue()
+    (OUT / f"{out.name}.log").write_text(log)
+    if rc != 0:
+        raise RuntimeError(f"CLI {out.name} exited {rc}:\n{log[-3000:]}")
+    info = {n: (out / "crashes" / n).read_text()
+            for n in os.listdir(out / "crashes") if n.endswith(".info")}
+    return {"findings": findings(out), "counters": stats_counters(out),
+            "isd": Path(f"{out}.isd").read_text(), "info": info,
+            "picks": picks(out)}, log
+
+
+def host_parity(name, argv):
+    """``argv`` on the card and with --device cpu (PIPELINE_DEPTH 1):
+    md5 sets, ``.info`` texts, counters, ``-isd`` and picks equal."""
+    got = {dev: host_run(OUT / f"{name}_{dev}", argv, dev)[0]
+           for dev in ("cuda", "cpu")}
+    if got["cuda"] != got["cpu"]:
+        diff = [k for k in got["cuda"] if got["cuda"][k] != got["cpu"][k]]
+        raise AssertionError(f"{name}: card and CPU differ in {diff}")
+    return got["cuda"]
+
+
+def host_cli_parity(fx):
+    """10a: the reference's smoke configs through ``cli.main``, card
+    against CPU: ``file return_code bit_flip`` over the whole 32-flip
+    walk of 'ABC@' (the single-exec loop; flip 29 makes the crasher
+    'ABCD') and ``stdin afl honggfuzz`` from 'Azzz' at -b 64 with a
+    corpus-feedback rotation (exactly two new paths)."""
+    rc = host_parity("host_return_code", [
+        "file", "return_code", "bit_flip", "-n", "32", "-ss", "ABC@",
+        "-d", json.dumps({"path": fx["test"]})])
+    if len(rc["findings"]["crashes"]) != 1:
+        raise AssertionError("file return_code bit_flip found no crash "
+                             "from ABC@")
+    afl = host_parity("host_afl_honggfuzz", [
+        "stdin", "afl", "honggfuzz", "-n", "640", "-b", "64", "-ss",
+        "Azzz", "-m", json.dumps({"seed": MUT_SEED}),
+        "-d", json.dumps({"path": fx["test"]})])
+    if afl["counters"]["paths_total"] != "2" or not afl["picks"]:
+        raise AssertionError(f"stdin afl honggfuzz: {afl['counters']}, "
+                             f"picks {afl['picks']} (want 2 new paths "
+                             "and a rotation)")
+    print(f"10a: card == CPU (md5 sets, counters, -isd, picks): file "
+          f"return_code bit_flip {rc['counters']} with the crash; stdin "
+          f"afl honggfuzz {afl['counters']}, picks {afl['picks']}",
+          flush=True)
+
+
+def host_triage(fx, card):
+    """10b: HOST_B real bitmaps (havoc of 'ABC@zzzz' on ``test``, so
+    some lanes crash) triaged from fresh virgin maps by
+    ``triage_host_bitmaps`` on the card and on the CPU, and by the
+    numpy word-skip path: rets, unique crashes and hangs and the three
+    maps equal.  Times: the card's device ms (tools/timing, CUDA
+    events, median of 5), the card path's host ms with its copies
+    (bitmaps up, verdicts and maps back: ``_torch_triage_batch``), the
+    CPU torch path's ms and the numpy path's ms (median of 3).
+    Returns the card's device ms."""
+    import numpy as np
+    from killerbeez_tpu_torch import MAP_SIZE
+    from killerbeez_tpu_torch.instrumentation.afl import (
+        AflInstrumentation, triage_host_bitmaps,
+    )
+    from killerbeez_tpu_torch.mutators import mutator_factory
+    from killerbeez_tpu_torch.native.exec_backend import (
+        ExecPool, classify_batch,
+    )
+    from killerbeez_tpu_torch.tools.timing import timed
+    mut = mutator_factory("havoc", json.dumps({"seed": MUT_SEED}),
+                          b"ABC@zzzz", device="cuda")
+    bufs, lens = mut.mutate_batch_host(HOST_B)
+    with ExecPool([fx["test"]], 8, use_stdin=True, use_forkserver=True,
+                  coverage=True) as pool:
+        raw, maps = pool.run_batch(bufs, lens)
+    verdicts, _ = classify_batch(raw)
+
+    def fresh(dev):
+        return [torch.full((MAP_SIZE,), 0xFF, dtype=torch.uint8,
+                           device=dev) for _ in range(3)]
+
+    outs = {}
+    for dev in ("cuda", "cpu"):
+        t0 = time.perf_counter()
+        got = triage_host_bitmaps(torch.from_numpy(maps).to(dev),
+                                  torch.from_numpy(verdicts).to(dev),
+                                  *fresh(dev))
+        outs[dev] = [t.cpu().numpy() for t in got]
+        if dev == "cpu":
+            cpu_ms = (time.perf_counter() - t0) * 1e3
+
+    def host_path(device_triage):
+        afl = AflInstrumentation(json.dumps(
+            {"device_triage": device_triage}), device="cuda")
+        t0 = time.perf_counter()
+        if device_triage:
+            res = afl._torch_triage_batch(maps, verdicts)
+        else:
+            res = afl._np_triage_batch(maps, verdicts)
+        ms = (time.perf_counter() - t0) * 1e3
+        return ms, list(res) + [afl.virgin_bits, afl.virgin_crash,
+                                afl.virgin_tmout]
+
+    np_runs = [host_path(0) for _ in range(3)]
+    card_runs = [host_path(1) for _ in range(3)]
+    for label, other in (("CPU torch", outs["cpu"]),
+                         ("numpy", np_runs[0][1]),
+                         ("the card path with its copies", card_runs[0][1])):
+        for a, b in zip(outs["cuda"], other):
+            if not np.array_equal(a, np.asarray(b).astype(a.dtype)):
+                raise AssertionError(f"10b: the card's triage differs "
+                                     f"from {label}")
+    dmaps = torch.from_numpy(maps).cuda()
+    dverd = torch.from_numpy(verdicts).cuda()
+    dev_ms = timed(lambda: triage_host_bitmaps(dmaps, dverd,
+                                               *fresh("cuda")), 5)
+    new_paths = int((outs["cuda"][0] > 0).sum())
+    print(f"10b: triage of {HOST_B} host bitmaps ({int(outs['cuda'][1].sum())}"
+          f" unique crashes of {int((verdicts == 2).sum())} crash lanes, "
+          f"{new_paths} new paths): card == CPU torch == numpy (rets, uc, "
+          f"uh, three maps); [ms, {card}] card device "
+          f"{dev_ms:.3f}, card with its copies "
+          f"{statistics.median(r[0] for r in card_runs):.1f}, CPU torch "
+          f"{cpu_ms:.0f}, numpy "
+          f"{statistics.median(r[0] for r in np_runs):.1f}", flush=True)
+    return dev_ms
+
+
+def host_flagships(fx, card):
+    """10c: ``stdin afl havoc -b HOST_B`` through ``cli.main`` (the
+    default pipeline depth, -fb 0), in turns: afl ``workers`` 8 with
+    ``device_triage`` 0 then 1 (two batches each), then ``workers`` 1
+    with ``device_triage`` 1 then 0 (one batch each).  Prints each
+    run's execs/s and the share of its wall time the driver spent in
+    ``mutate_batch_host``: waiting for the prefetched candidates' host
+    copies (the first batch, with nothing prefetched, generates and
+    copies there)."""
+    from killerbeez_tpu_torch.mutators.base import Mutator
+    plan = [(8, 0, 2), (8, 1, 2), (1, 1, 1), (1, 0, 1)]
+    orig = Mutator.mutate_batch_host
+    waited = [0.0]
+
+    def timed_host(self, n):
+        t0 = time.perf_counter()
+        try:
+            return orig(self, n)
+        finally:
+            waited[0] += time.perf_counter() - t0
+
+    Mutator.mutate_batch_host = timed_host
+    rows = []
+    try:
+        for i, (workers, dt, batches) in enumerate(plan):
+            waited[0] = 0.0
+            n_iter = batches * HOST_B
+            _, log = host_run(OUT / f"host_afl_havoc_{i}", [
+                "stdin", "afl", "havoc", "-n", str(n_iter), "-b",
+                str(HOST_B), "-fb", "0", "-ss", "ABC@zzzz", "-m",
+                json.dumps({"seed": MUT_SEED}),
+                "-d", json.dumps({"path": fx["test"]}),
+                "-i", json.dumps({"device_triage": dt, "workers": workers})],
+                "cuda", depth=None)
+            m = re.search(r"Ran (\d+) iterations in ([0-9.]+) seconds "
+                          r"\(([0-9.]+) execs/s lifetime", log)
+            if not m or int(m.group(1)) != n_iter:
+                raise AssertionError(f"10c run {i} did not run every "
+                                     "iteration")
+            wall = float(m.group(2))
+            rows.append(f"workers {workers} device_triage {dt}: "
+                        f"{m.group(3)} execs/s, copy wait "
+                        f"{waited[0] / wall:.4f} of {wall:.2f} s")
+    finally:
+        Mutator.mutate_batch_host = orig
+    print(f"10c: stdin afl havoc -b {HOST_B} on {card} (in turns): "
+          + "; ".join(rows), flush=True)
+
+
+def host_debug_and_qemu(fx):
+    """10d: ``-dt`` on the crasher (card == CPU ``.info`` text), and one
+    ``ipt`` ``qemu_mode`` batch on the card: kb-trace in hash mode on
+    the uninstrumented ``test-plain``, two execs of the crasher 'ABCD'
+    (mutator nop) with a 60 s exec timeout — kb-trace's ptrace stops
+    are slow on some kernels — which must both crash, with no hang or
+    error.  Prints the execs' seconds and how many distinct (tip, tnt)
+    pairs the two identical execs gave (1 when the trace is stable)."""
+    dt = host_parity("host_debug_triage", [
+        "stdin", "afl", "bit_flip", "-ss", "ABC@", "-dt",
+        "-d", json.dumps({"path": fx["test"]})])
+    if len(dt["info"]) != 1 or not next(iter(dt["info"].values())) \
+            .startswith("SIGSEGV at pc="):
+        raise AssertionError(f"-dt wrote {dt['info']}")
+    t0 = time.perf_counter()
+    q, _ = host_run(OUT / "host_ipt_qemu", [
+        "stdin", "ipt", "nop", "-ss", "ABCD", "-n", "2", "-b", "2",
+        "-fb", "0", "-d", json.dumps({"path": fx["test-plain"]}),
+        "-i", json.dumps({"qemu_mode": 1, "timeout": 60})], "cuda")
+    secs = time.perf_counter() - t0
+    state = json.loads(q["isd"])
+    if (q["counters"]["execs_done"] != "2"
+            or len(q["findings"]["crashes"]) != 1
+            or q["findings"]["hangs"] or state["total_execs"] != 2):
+        raise AssertionError(f"ipt qemu_mode: {q}")
+    print(f"10d: -dt card == CPU: {next(iter(dt['info'].values()))!r}; "
+          f"ipt qemu_mode on the card: 2 execs of ABCD on test-plain in "
+          f"{secs:.1f} s, both crashes, {len(state['hashes'])} distinct "
+          "(tip, tnt) pair(s)", flush=True)
+
+
 class Phases:
     """Prints each phase's wall time as the next one starts."""
 
@@ -1798,6 +2055,14 @@ def main() -> int:
     mut_launches = mutator_flagships(card)
     phases.start("8d (mutator stages)")
     mutator_stages(card, files, vk)
+
+    # -- phase 10: the host-execution tier (no kernel on its path) -----
+    phases.start("10 (host-execution tier)")
+    fx = host_build()
+    host_cli_parity(fx)
+    host_triage(fx, card)
+    host_flagships(fx, card)
+    host_debug_and_qemu(fx)
 
     # -- phase 9: the record -------------------------------------------
     phases.start("9 (record)")

@@ -12,8 +12,8 @@ instead.  Asking for the card without one is an error, never a silent
 fall back to the CPU.
 
 Package map (the flagship fuzz loop, the CLI's default campaign, its
-device-resident generation loop, the mesh campaign, the trace surface
-and every mutator but grammar):
+device-resident generation loop, the mesh campaign, the trace surface,
+every mutator but grammar and the host-execution tier):
   utils/            logging, JSON option parsing, state serialization
   models/           the KBVM bytecode VM (plain torch engines, with the
                     edge stream and the single-lane reference) + targets
@@ -21,10 +21,14 @@ and every mutator but grammar):
                     triage, the VM kernels, the device-resident
                     generation loop (-G)
   csrc/             CUDA C++ sources of the kernels
-  instrumentation/  jit_harness (with edge reporting), ipt
+  instrumentation/  jit_harness (with edge reporting), ipt (KBVM and
+                    host binaries), and the host backends afl,
+                    return_code and debug
+  native/           the ctypes exec backend over the repository's
+                    native/ sources, built into build/torch_native/
   mutators/         every mutator but grammar (havoc fuses into the
                     VM kernel; the rest run unfused)
-  drivers/          file
+  drivers/          file, stdin, network_server, network_client
   corpus/           the corpus store and the seed schedulers
   analysis/         the block CFG, the static edge prior and the
                     dataflow analysis behind the auto-dictionary

@@ -11,7 +11,10 @@ the VM kernel.  A short unfused batch may be padded to a fixed lane
 count with copies of lane 0, as the JAX package pads its tail batches:
 the copies are coverage no-ops, the loop triages only the real lanes,
 and the instrumentation counts every executed lane, as the JAX
-package's does.
+package's does.  A host-executed target (a driver that describes its
+command with ``_host_exec_spec``) gets the candidates on the host,
+runs only the real lanes and pads its results instead, and the
+mutator generates the next batch while this one's processes run.
 """
 
 from __future__ import annotations
@@ -19,6 +22,7 @@ from __future__ import annotations
 import contextlib
 from typing import Any, Dict, NamedTuple, Optional
 
+import numpy as np
 import torch
 
 from .. import resolve_device
@@ -29,7 +33,7 @@ from ..utils.options import format_help, parse_options
 
 class BatchOutcome(NamedTuple):
     result: Optional[BatchResult]
-    inputs: Any           # uint8[B, L] (device tensor)
+    inputs: Any           # uint8[B, L] (device tensor, numpy on the host)
     lengths: Any          # int32[B]
     #: device-compacted interesting-lane report (fused path only)
     compact: Optional[Any] = None
@@ -79,10 +83,18 @@ class Driver:
 
     @property
     def supports_batch(self) -> bool:
-        return (self.instrumentation.supports_batch
-                and self.instrumentation.device_backed
+        host_ok = (self.instrumentation.device_backed or
+                   type(self)._host_exec_spec is not Driver._host_exec_spec)
+        return (self.instrumentation.supports_batch and host_ok
                 and self.mutator is not None
                 and self.mutator.batch_capable)
+
+    def _host_exec_spec(self) -> Dict[str, Any]:
+        """How a host backend executes the target in the batched path:
+        {"cmd_line", "use_stdin", "input_file"}.  Drivers that cannot
+        describe one do not batch host backends."""
+        raise NotImplementedError(
+            f"{self.name}: no host-exec batch support")
 
     # -- single-exec ----------------------------------------------------
 
@@ -101,7 +113,10 @@ class Driver:
     def get_last_input(self) -> Optional[bytes]:
         if self.last_input is None and self._last_batch_tail is not None:
             bufs, lens, i = self._last_batch_tail
-            self.last_input = bufs[i, :int(lens[i])].cpu().numpy().tobytes()
+            row = bufs[i, :int(lens[i])]
+            if isinstance(row, torch.Tensor):
+                row = row.cpu().numpy()
+            self.last_input = np.asarray(row).tobytes()
             self._last_batch_tail = None
         return self.last_input
 
@@ -111,14 +126,31 @@ class Driver:
         wants = getattr(self.instrumentation, "wants_fused", None)
         return wants is not None and wants(self.mutator)
 
-    def test_batch(self, n: int, pad_to: Optional[int] = None
-                   ) -> BatchOutcome:
-        """Mutate + execute ``n`` candidates; results stay on the
-        device.  ``pad_to`` pads an unfused batch of fewer lanes with
-        copies of lane 0 (the fused kernel runs only ``n``)."""
+    def test_batch(self, n: int, pad_to: Optional[int] = None,
+                   prefetch_next=True) -> BatchOutcome:
+        """Mutate + execute ``n`` candidates; a device backend's
+        results stay on the device.  ``pad_to`` pads an unfused batch
+        of fewer lanes with copies of lane 0 (the fused kernel runs
+        only ``n``); a host backend runs the ``n`` real lanes and pads
+        its result arrays.  ``prefetch_next``: the size of the
+        following batch, which a host backend's mutator generates
+        while this batch's processes run (0/False: none, True: n)."""
         if not self.supports_batch:
             raise RuntimeError(f"{self.name}: batch path unavailable")
-        if self._wants_fused():
+        if not self.instrumentation.device_backed:
+            # idempotent per target key; re-binds if a single exec
+            # rebuilt the instrumentation's target in between
+            self.instrumentation.prepare_host(**self._host_exec_spec())
+            with self._span("mutate"):
+                bufs, lens = self.mutator.mutate_batch_host(n)
+                if prefetch_next:
+                    self.mutator.prefetch_batch(
+                        n if prefetch_next is True else int(prefetch_next))
+            with self._span("execute"):
+                result = self.instrumentation.run_batch(bufs, lens,
+                                                        pad_to=pad_to)
+            compact = None
+        elif self._wants_fused():
             its = self.mutator.peek_iterations(n)
             with self._span("execute"):     # mutation is in-kernel
                 result, bufs, lens, compact = \

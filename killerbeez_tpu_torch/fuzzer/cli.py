@@ -14,9 +14,19 @@ dp,mp`` spreads the campaign over a (dp, mp) mesh of dp x mp cards
 (``--device cpu``: dp x mp CPU shards), with ``-G`` the mesh-resident
 generation scan.
 
+Host-executed targets take the driver's path (the candidates are made
+on the card and run as real processes):
+    python -m killerbeez_tpu_torch.fuzzer stdin afl havoc \
+        -ss ABC@ -b 4096 -d '{"path": "build/torch_native/corpus/test"}'
+(``-i '{"device_triage": 1}'`` runs afl's novelty scan on the card;
+``file return_code bit_flip`` runs one process per input).  ``-dt``
+re-runs each unique crash under the ptrace debug tier and writes
+``crashes/<md5>.info``.
+
 ``--schedule rare-edge`` signs each admitted finding with one extra
-execution on a side instrumentation with edge reporting (on the same
-device) and primes the scheduler with the program's static edge
+execution: on a side instrumentation with edge reporting (on the same
+device) for KBVM targets, on the live target for host targets; KBVM
+targets also prime the scheduler with the program's static edge
 prior.  Runs on the CUDA card unless ``--device cpu`` is given.  Flags
 whose machinery is not ported yet are accepted by the parser and
 refused with exit status 2, naming the flag.
@@ -31,6 +41,8 @@ import json
 import os
 import sys
 from typing import List, Optional
+
+import numpy as np
 
 from .. import DEFAULT_BATCH_SIZE
 from ..drivers.factory import driver_factory, driver_help
@@ -56,8 +68,7 @@ UNPORTED = (
     (("--descend",), "?"), (("--descend-lanes",), None),
     (("--descend-engine",), None), (("--descend-scan-iters",), None),
     (("--learn",), "?"), (("--learn-interval",), None),
-    (("--no-focus",), "?"), (("-dt", "--debug-triage"), "?"),
-    (("--stateful",), "?"),
+    (("--no-focus",), "?"), (("--stateful",), "?"),
 )
 _NOT_GIVEN = object()
 
@@ -67,9 +78,12 @@ def build_parser() -> argparse.ArgumentParser:
         prog="killerbeez-tpu-torch-fuzzer",
         description="Killerbeez fuzzer on PyTorch/CUDA (driver / "
                     "instrumentation / mutator architecture)")
-    p.add_argument("driver", nargs="?", help="driver name (file)")
+    p.add_argument("driver", nargs="?",
+                   help="driver name (file, stdin, network_server, "
+                        "network_client)")
     p.add_argument("instrumentation", nargs="?",
-                   help="instrumentation name (jit_harness)")
+                   help="instrumentation name (jit_harness, ipt, afl, "
+                        "return_code, debug)")
     p.add_argument("mutator", nargs="?", help="mutator name (havoc)")
     p.add_argument("-n", "--iterations", type=int, default=-1,
                    help="number of executions (-1 = until exhausted)")
@@ -116,6 +130,10 @@ def build_parser() -> argparse.ArgumentParser:
                         "holding the corpus-wide rarest edges, each "
                         "admission signed by one extra execution; rr: "
                         "round-robin)")
+    p.add_argument("-dt", "--debug-triage", action="store_true",
+                   help="re-run each unique crash once under the "
+                        "ptrace debug tier and save signal-level "
+                        "details next to the repro (host targets)")
     p.add_argument("-b", "--batch-size", type=int,
                    default=DEFAULT_BATCH_SIZE,
                    help="candidates per device step")
@@ -210,24 +228,38 @@ def list_components() -> str:
 
 def _wire_rare_edge_signer(fuzzer, driver) -> None:
     """``--schedule rare-edge`` needs per-entry coverage signatures.
-    Each admitted finding is signed with ONE extra execution on a side
-    instrumentation instance with edge reporting forced on, on the main
-    instance's device (the main instance keeps its fused and superbatch
-    paths); admissions are rare, so the batched path stays untouched.
-    Instrumentations that cannot report edges (ipt) leave entries
-    unsigned: the scheduler probes those once."""
+    Each admitted finding is signed with ONE extra execution;
+    admissions are rare, so the batched path stays untouched.  Device
+    tiers sign on a side instrumentation instance with edge reporting
+    forced on, on the main instance's device (the main instance keeps
+    its fused and superbatch paths); host tiers re-run the input on the
+    live target and read its raw trace.  Instrumentations that cannot
+    report edges (ipt) leave entries unsigned: the scheduler probes
+    those once."""
     instr = driver.instrumentation
     side: dict = {}
 
     def sign(buf: bytes):
-        s = side.get("instr")
-        if s is None:
-            from ..tools.tracer import force_edges_option
-            s = side["instr"] = instrumentation_factory(
-                instr.name, force_edges_option(json.dumps(instr.options)),
-                device=instr.device)
-        s.enable(buf)
-        edges = s.get_edges()
+        if instr.device_backed:
+            s = side.get("instr")
+            if s is None:
+                from ..tools.tracer import force_edges_option
+                s = side["instr"] = instrumentation_factory(
+                    instr.name,
+                    force_edges_option(json.dumps(instr.options)),
+                    device=instr.device)
+            s.enable(buf)
+            edges = s.get_edges()
+            return [e for e, _ in edges] if edges else None
+        # host tier: one extra exec on the live target (the novelty
+        # fold is idempotent: the entry was just executed)
+        driver.test_input(buf)
+        trace_fn = getattr(instr, "last_trace", None)
+        if trace_fn is not None:
+            trace = trace_fn()
+            if trace is not None:
+                return [int(i) for i in np.flatnonzero(trace)]
+        edges = instr.get_edges()
         return [e for e, _ in edges] if edges else None
 
     fuzzer._signer = sign
@@ -325,6 +357,7 @@ def main(argv: Optional[List[str]] = None) -> int:
 
         fuzzer = Fuzzer(driver, output_dir=args.output,
                         batch_size=args.batch_size,
+                        debug_triage=args.debug_triage,
                         feedback=args.feedback,
                         accumulate=args.accumulate,
                         stats=not args.no_stats,

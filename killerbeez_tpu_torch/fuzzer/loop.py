@@ -31,9 +31,16 @@ the loop requests whole mesh batches, reads each dp shard's block of
 the compact report, and drains mesh generation reports shard by shard
 through their ``shard(d)`` views.
 
-Not ported yet: the crack and repair stages, sync, the
-learn and hybrid tiers, and the single-exec loop (only batching
-backends exist).
+Host-executed targets (afl, ipt's ``qemu_mode``) batch the same way:
+the driver runs a numpy batch of real processes while the mutator
+generates the next one on the device, and the results come back as
+numpy arrays.  Backends that cannot batch (return_code, debug) run the
+single-exec loop, one input at a time.  ``debug_triage`` (CLI ``-dt``)
+re-runs each unique crash once under the ptrace debug tier and writes
+its signal-level details next to the repro.
+
+Not ported yet: the crack and repair stages, sync, and the learn and
+hybrid tiers.
 """
 
 from __future__ import annotations
@@ -171,7 +178,7 @@ class Fuzzer:
     tier_tag = "cuda"
 
     def __init__(self, driver: Driver, output_dir: str = "output",
-                 batch_size: int = 1024,
+                 batch_size: int = 1024, debug_triage: bool = False,
                  feedback: int = -1, accumulate: int = 0,
                  stats: bool = True,
                  stats_interval: float = 5.0,
@@ -183,11 +190,12 @@ class Fuzzer:
                  watchdog=None,
                  profile_device: int = 0,
                  generations: int = 0):
-        if not driver.supports_batch:
-            raise ValueError("only batching backends are ported yet")
         self.driver = driver
         self.output_dir = output_dir
         self.batch_size = int(batch_size)
+        #: re-run each unique crash once under the debug tier (-dt)
+        self.debug_triage = debug_triage
+        self._dbg = None
         # observability: the registry ALWAYS runs (FuzzStats is a view
         # over it); ``stats=False`` (CLI --no-stats) only disables the
         # stats files and the event log.  ``trace`` > 0 turns the span
@@ -523,6 +531,8 @@ class Fuzzer:
                     "crash", md5=digest,
                     crashes=int(s.crashes),
                     unique_crashes=int(s.unique_crashes))
+                if self.debug_triage:
+                    self._debug_repro(buf)
         elif status == FUZZ_HANG:
             s.hangs += 1
             s.unique_hangs += int(unique_hang)
@@ -570,18 +580,60 @@ class Fuzzer:
                     or "base",
                     credit=self._credit_arm)
 
+    def _debug_repro(self, buf: bytes) -> None:
+        """Re-run a unique crash once under the ptrace debug tier and
+        log (and write to ``crashes/<md5>.info``) its signal-level
+        details: fuzzing stays batched, crash detail single-exec.
+        Device targets carry their detail in exit codes and are
+        skipped."""
+        instr = self.driver.instrumentation
+        if instr is not None and instr.device_backed:
+            return
+        try:
+            spec = self.driver._host_exec_spec()
+        except (NotImplementedError, KeyError):
+            return
+        try:
+            if self._dbg is None:
+                from ..instrumentation.debug import DebugInstrumentation
+                # inherit the batched tier's execution conditions: a
+                # slow or rlimit-dependent crash must re-run under the
+                # same timeout and mem_limit to reproduce
+                opts = {key: instr.options[key]
+                        for key in ("timeout", "mem_limit")
+                        if key in getattr(instr, "options", {})}
+                self._dbg = DebugInstrumentation(
+                    json.dumps(opts) if opts else None,
+                    device=instr.device)
+            if spec.get("use_stdin"):
+                self._dbg.enable(buf, cmd_line=spec["cmd_line"])
+            else:
+                write_buffer_to_file(spec["input_file"], buf)
+                self._dbg.enable(None, cmd_line=spec["cmd_line"])
+            desc = self._dbg.crash_description()
+            CRITICAL_MSG("crash triage: %s", desc)
+            write_buffer_to_file(
+                os.path.join(self.output_dir, "crashes",
+                             md5_hex(buf) + ".info"),
+                (desc + "\n").encode())
+        except Exception as e:  # triage detail must never stop fuzzing
+            WARNING_MSG("debug triage failed: %s", e)
+
     # -- loops ----------------------------------------------------------
 
     def run(self, n_iterations: int = -1) -> FuzzStats:
         """Run ``n_iterations`` executions (-1 = until the mutator
-        exhausts)."""
+        exhausts): batched when the driver batches, else one input at
+        a time."""
         if self.stats.iterations == 0:
             # baseline snapshot: plot_data's first row is all-zero so
             # the sum of row deltas equals the cumulative counters
             self.telemetry.flush()
         self.telemetry.registry.run_started()
         try:
-            if self.generations > 1:
+            if not self.driver.supports_batch:
+                self._run_single(n_iterations)
+            elif self.generations > 1:
                 self._run_generations(n_iterations)
             else:
                 self._run_batched(n_iterations)
@@ -945,6 +997,11 @@ class Fuzzer:
                     self._profile_count(accumulate)
                     continue
                 self._fb_batches += 1
+                # the NEXT batch's size, so that a host driver's
+                # mutator prefetches exactly what will be asked for (a
+                # full-size stash before a smaller tail is stale)
+                nxt = min(self._remaining(n_iterations) - room,
+                          mut.remaining() - room, self.batch_size)
                 lane = None
                 tr = self.telemetry.trace
                 if tr is not None:
@@ -954,10 +1011,12 @@ class Fuzzer:
                 with self._wd_guard("dispatch"):
                     chaos_point("device_dispatch")
                     # a short tail batch is padded to the batch size,
-                    # as the JAX package pads it: the instrumentation
-                    # state counts the executed lanes
-                    out = self.driver.test_batch(room,
-                                                 pad_to=self.batch_size)
+                    # as the JAX package pads it: a device backend's
+                    # state counts the executed lanes, a host backend
+                    # pads its results and counts the real ones
+                    out = self.driver.test_batch(
+                        room, pad_to=self.batch_size,
+                        prefetch_next=max(nxt, 0))
                 out, packed = self._prefetch(out)
                 self.stats.iterations += room
                 if tr is not None:
@@ -976,6 +1035,48 @@ class Fuzzer:
             # interrupt or a raise
             while pending:
                 self._triage_batch(*pending.popleft())
+
+    def _run_single(self, n_iterations: int) -> None:
+        """The single-exec loop (backends that cannot batch: return_code,
+        debug): one ``test_next_input`` per execution, triaged at once.
+        Corpus feedback rotates every ``feedback`` batches' worth of
+        executions, and ``--profile-device`` counts each execution as a
+        batch."""
+        instr = self.driver.instrumentation
+        mut = self.driver.mutator
+        rotate_every = self.feedback * self.batch_size
+        if rotate_every and self.scheduler.base_seed is None and \
+                getattr(mut, "seed_bytes", None):
+            self.scheduler.base_seed = mut.seed_bytes
+        reg = self.telemetry.registry
+        while self._remaining(n_iterations) > 0:
+            if (rotate_every and self.stats.iterations
+                    and self.stats.iterations % rotate_every == 0):
+                with self.telemetry.timer("corpus_feedback"):
+                    self._credit_period()
+                    if self.scheduler.arms:
+                        self._rotate_seed(mut)
+            if self.profile_device and not self._prof_active:
+                self._profile_start()
+            with self._wd_guard("execute"), \
+                    self.telemetry.timer("execute"):
+                chaos_point("device_dispatch")
+                result = self.driver.test_next_input()
+            if result is None:
+                INFO_MSG("mutator exhausted after %d iterations",
+                         self.stats.iterations)
+                break
+            self._profile_count(1)
+            self.stats.iterations += 1
+            reg.rate("execs", 1)
+            buf = self.driver.get_last_input() or b""
+            self._credit_arm = self._active_entry
+            with self.telemetry.timer("triage"):
+                self._triage_lane(result, instr.is_new_path(), buf,
+                                  instr.last_unique_crash(),
+                                  instr.last_unique_hang())
+            self.telemetry.maybe_flush()
+            self._persist_campaign()
 
     # -- opt-in device profiling (--profile-device) ---------------------
 

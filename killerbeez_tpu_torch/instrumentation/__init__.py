@@ -7,12 +7,16 @@ from .factory import (
     instrumentation_factory, instrumentation_help, instrumentation_names,
     register_instrumentation,
 )
+from .afl import AflInstrumentation
+from .debug import DebugInstrumentation
 from .ipt import IptInstrumentation
 from .jit_harness import JitHarnessInstrumentation
+from .return_code import ReturnCodeInstrumentation
 
 __all__ = [
     "Instrumentation", "BatchResult",
     "instrumentation_factory", "instrumentation_help",
     "instrumentation_names", "register_instrumentation",
-    "IptInstrumentation", "JitHarnessInstrumentation",
+    "AflInstrumentation", "DebugInstrumentation", "IptInstrumentation",
+    "JitHarnessInstrumentation", "ReturnCodeInstrumentation",
 ]

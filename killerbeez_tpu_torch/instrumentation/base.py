@@ -3,9 +3,14 @@
 Two execution APIs:
 
   * single-exec (reference-shaped): ``enable(input)`` runs one input;
-    ``get_fuzz_result()`` / ``is_new_path()`` report on it.
+    ``get_fuzz_result()`` / ``is_new_path()`` report on it.  Host
+    backends (afl, return_code, debug, ipt's ``qemu_mode``) take the
+    driver's command line, and the network drivers run a live target
+    through ``start_process`` / ``wait_done``.
   * batched: ``run_batch(inputs, lengths)`` executes a whole candidate
-    tensor and returns per-lane verdicts + novelty in one device step.
+    tensor and returns per-lane verdicts + novelty in one device step;
+    host backends execute numpy batches of real processes once the
+    driver has bound the command with ``prepare_host``.
 
 State is a JSON string (get_state/set_state) and ``merge`` folds two
 states' coverage together; the string format is the JAX package's, so
@@ -67,7 +72,8 @@ def pad_batch_result(res: "BatchResult", pad_to: int) -> "BatchResult":
 
 
 class BatchResult(NamedTuple):
-    """Per-lane outcome of a batched execution (device tensors)."""
+    """Per-lane outcome of a batched execution: tensors on the
+    instrumentation's device, or numpy arrays from host backends."""
     statuses: Any          # int32[B] FUZZ_* (RUNNING already -> HANG)
     new_paths: Any         # int32[B] 0 / 1 (new bucket) / 2 (new edge)
     unique_crashes: Any    # bool[B] first-seen crash shape
@@ -105,7 +111,32 @@ class Instrumentation:
 
     def enable(self, input_bytes: Optional[bytes] = None,
                cmd_line: Optional[str] = None) -> None:
-        """Run the target on one input (blocking)."""
+        """Run the target on one input (blocking).  Host backends take
+        the driver-built ``cmd_line``; device backends ignore it."""
+        raise NotImplementedError
+
+    def is_process_done(self) -> bool:
+        return True
+
+    # -- async exec (network drivers) -----------------------------------
+
+    def start_process(self, cmd_line: str) -> None:
+        """Start the target without waiting (the reference enable's
+        async half): the driver talks to the live process, then calls
+        wait_done() for the verdict and the novelty update."""
+        raise NotImplementedError(
+            f"{self.name} cannot run live targets")
+
+    def wait_done(self, timeout: float) -> int:
+        """Wait for a start_process() target; kill on timeout (hang).
+        Returns the FUZZ_* verdict and updates novelty state."""
+        raise NotImplementedError
+
+    def abort_process(self) -> int:
+        """Kill and reap a start_process() target without triaging the
+        run (no virgin-map update, no hang or crash), for driver-level
+        failures that say nothing about the input (the target never
+        opened its port).  Returns FUZZ_ERROR."""
         raise NotImplementedError
 
     def get_fuzz_result(self) -> int:
@@ -120,7 +151,18 @@ class Instrumentation:
     def last_unique_hang(self) -> bool:
         return False
 
-    def run_batch(self, inputs, lengths) -> BatchResult:
+    def prepare_host(self, cmd_line: str, use_stdin: bool,
+                     input_file: Optional[str] = None) -> None:
+        """Host backends: bind the target command before batch runs
+        (drivers call this before each batch; device backends ignore
+        it)."""
+
+    def run_batch(self, inputs, lengths,
+                  pad_to: Optional[int] = None) -> BatchResult:
+        """Execute a [B, L] candidate batch.  ``pad_to`` asks host
+        backends to pad the result arrays up to a stable lane count —
+        padding never costs a real target execution; device backends
+        get already-padded inputs and take no ``pad_to``."""
         raise NotImplementedError(f"{self.name} has no batch path")
 
     def merge(self, other_state: str) -> None:
@@ -135,6 +177,12 @@ class Instrumentation:
     def get_module_info(self) -> List[str]:
         """Names of instrumented modules (per-module coverage)."""
         return []
+
+    def module_map_ranges(self):
+        """[(name, lo, hi)] byte ranges of each module's partition in
+        the raw coverage bitmap; None when the backend has no raw
+        bitmap."""
+        return None
 
     def get_edge_pairs(self, module: Optional[str] = None):
         """(from, to, count) records of the last execution; None when

@@ -44,7 +44,8 @@ from .. import FUZZ_CRASH, FUZZ_HANG, FUZZ_NONE, FUZZ_RUNNING, MAP_SIZE, \
 from ..models import targets as targets_mod
 from ..ops.host_copy import HostCopy
 from ..ops.coverage import (
-    classify_counts, count_non_255_bytes, merge_virgin, simplify_trace,
+    classify_counts, count_non_255_bytes, has_new_bits_scan, merge_virgin,
+    simplify_trace,
 )
 from ..ops.static_triage import (
     _outside_mask, counts_by_slot, make_static_maps, static_triage,
@@ -69,48 +70,6 @@ COMPACT_CAP = 1024
 
 M32 = 0xFFFFFFFF
 
-# bit index of a single-bit byte (AFL classes and simplified traces are
-# 0 or one power of two); 8 for zero
-_BIT_INDEX = np.full(256, 8, dtype=np.int64)
-for _k in range(8):
-    _BIT_INDEX[1 << _k] = _k
-_BIT_INDEX_ON = {}
-
-
-def _seq_novelty(virgin_u, vals, active):
-    """Sequential ``has_new_bits`` over the lanes of ``vals``
-    (uint8[B, U], each cell 0 or a single bit) against ``virgin_u``
-    (uint8[U]): lane i is judged against the map after the ACTIVE
-    lanes before it.  Vectorized: lane i sees bit k of slot s cleared
-    iff an earlier active lane set it, so one first-lane-per-(slot,
-    bit) table replaces the scan.  Returns (rets int64[B], the map
-    after every active lane)."""
-    b, u = vals.shape
-    dev = vals.device
-    lane = torch.arange(b, device=dev)
-    table = _BIT_INDEX_ON.get(dev)
-    if table is None:
-        table = _BIT_INDEX_ON[dev] = torch.as_tensor(_BIT_INDEX, device=dev)
-    bit = table[vals.long()]                                      # [B, U]
-    key = torch.arange(u, device=dev)[None, :] * 9 + bit
-    key = torch.where(active[:, None] & (vals != 0), key, u * 9)
-    first = torch.full((u * 9 + 1,), b, dtype=torch.int64, device=dev)
-    first.scatter_reduce_(0, key.reshape(-1),
-                          lane[:, None].expand(b, u).reshape(-1),
-                          reduce="amin")
-    first = first[:-1].view(u, 9)[:, :8]                          # [U, 8]
-    earlier_any = first.amin(dim=1)[None, :] < lane[:, None]
-    earlier_same = first.gather(1, bit.clamp(max=7).t()).t() \
-        < lane[:, None]
-    v = virgin_u[None, :]
-    new_tuple = ((vals != 0) & (v == 0xFF) & ~earlier_any).any(dim=1)
-    new_count = (((vals & v) != 0) & ~earlier_same).any(dim=1)
-    rets = torch.where(new_tuple, 2, torch.where(new_count, 1, 0))
-    seen = torch.zeros(u, dtype=torch.uint8, device=dev)
-    for k in range(8):
-        seen = seen | ((first[:, k] < b).to(torch.uint8) << k)
-    return rets, virgin_u & ~seen
-
 
 def _triage_exact(vb, vc, vh, cls, simp, statuses, u_slots):
     """Sequential parity triage (the reference's single-exec loop run
@@ -122,14 +81,14 @@ def _triage_exact(vb, vc, vh, cls, simp, statuses, u_slots):
     b = cls.shape[0]
     us = u_slots.long()
     lane = torch.arange(b, device=cls.device)
-    new_paths, vbu = _seq_novelty(vb[us], cls,
-                                  torch.ones(b, dtype=torch.bool,
-                                             device=cls.device))
+    new_paths, vbu = has_new_bits_scan(vb[us], cls,
+                                       torch.ones(b, dtype=torch.bool,
+                                                  device=cls.device))
     vb2 = vb.clone()
     vb2[us] = vbu
 
     def dedup_map(v, active):
-        rets, vu = _seq_novelty(v[us], simp, active)
+        rets, vu = has_new_bits_scan(v[us], simp, active)
         outside = _outside_mask(u_slots, v.shape[0]).bool()
         any_ff = ((v == 0xFF) & outside).any()
         any_b0 = (((v & 1) != 0) & outside).any()

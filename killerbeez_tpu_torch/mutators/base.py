@@ -11,6 +11,11 @@ exhausted.
 tensors on the mutator's device; ``mutate`` is the n==1 case.  The
 seed is uploaded once per ``set_input`` and the iteration numbers are
 made on the device, so a batch copies nothing from the host.
+
+Host-executed targets take the candidates on the host:
+``mutate_batch_host(n)`` gives numpy arrays, and ``prefetch_batch(n)``
+generates the next ``n`` ahead, starting their copies to the host
+while the current batch's target processes run.
 """
 
 from __future__ import annotations
@@ -22,6 +27,7 @@ import numpy as np
 import torch
 
 from .. import resolve_device
+from ..ops.host_copy import HostCopy
 from ..utils.options import format_help, parse_options
 from ..utils.serialization import b64, unb64
 
@@ -104,6 +110,7 @@ class Mutator:
         self.seed_bytes = input_bytes
         self.seed_buf = buf
         self.seed_len = len(input_bytes)
+        self._stash = None  # prefetched candidates used the old seed
 
     def set_input(self, input_bytes: bytes,
                   keep_length: bool = False) -> None:
@@ -203,12 +210,59 @@ class Mutator:
     def advance(self, n: int) -> None:
         self.iteration += n
 
+    #: (start_iteration, n, bufs, lens, host copies) generated ahead
+    _stash = None
+    #: True when _generate makes the candidates on the device, so that
+    #: generating them ahead overlaps their host copies with other
+    #: work; mutators that make them on the host set it False
+    lazy_batches = True
+
+    def prefetch_batch(self, n: int) -> None:
+        """Generate the next ``n`` candidates now and start their
+        copies to the host, without advancing the walk: host-executed
+        drivers call this before a batch's target processes run, so
+        the next ``mutate_batch_host(n)`` waits only on a copy that
+        has landed.  A seed swap drops the stash."""
+        if self.remaining() < n or not self.batch_capable \
+                or not self.lazy_batches:
+            return
+        its = self.peek_iterations(n)
+        bufs, lens = self._generate(its)
+        bufs, lens = bufs.to(torch.uint8), lens.to(torch.int32)
+        self._stash = (int(its[0]), n, bufs, lens,
+                       (HostCopy(bufs), HostCopy(lens)))
+
+    def _take_stash(self, n: int):
+        """The stash if it holds the next ``n`` candidates (the walk
+        advances past them), else None; either way the stash is
+        dropped."""
+        stash, self._stash = self._stash, None
+        if stash is None or stash[0] != self.iteration or stash[1] != n:
+            return None
+        self.iteration += n
+        return stash
+
     def mutate_batch(self, n: int) -> Tuple[torch.Tensor, torch.Tensor]:
         """Generate the next ``n`` candidates and advance the walk."""
+        stash = self._take_stash(n)
+        if stash is not None:
+            return stash[2], stash[3]
         its = self.peek_iterations(n)
         bufs, lens = self._generate(its)
         self.iteration += n
         return bufs.to(torch.uint8), lens.to(torch.int32)
+
+    def mutate_batch_host(self, n: int) -> Tuple[np.ndarray, np.ndarray]:
+        """``mutate_batch`` as numpy arrays (uint8[n, L], int32[n]) for
+        host-executed targets: the prefetched host copies when the
+        stash holds these candidates (one wait, on their event), else
+        a fresh batch copied at once."""
+        stash = self._take_stash(n)
+        if stash is not None:
+            copies = stash[4]
+        else:
+            copies = tuple(HostCopy(t) for t in self.mutate_batch(n))
+        return tuple(c.materialize() for c in copies)
 
     def mutate(self, max_size: Optional[int] = None) -> Optional[bytes]:
         """Single-buffer API: next candidate, or None when exhausted."""

@@ -35,6 +35,7 @@ class ManagerMutator(Mutator):
     either the usual mem-array encoding or an already-framed buffer
     (kb-frame output): framed seeds split back into their messages."""
     name = "manager"
+    lazy_batches = False     # candidates made on the host
     OPTION_SCHEMA = {"mutators": list, "mutator_options": list,
                      "framed": int, "m_max": int}
     OPTION_DESCS = {

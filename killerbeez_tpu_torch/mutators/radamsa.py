@@ -19,6 +19,7 @@ from .base import Mutator
 class RadamsaMutator(Mutator):
     """External radamsa process; deterministic via per-iteration seed."""
     name = "radamsa"
+    lazy_batches = False     # candidates made on the host
     OPTION_SCHEMA = {"path": str}
     OPTION_DESCS = {"path": "radamsa binary (default: found on PATH)"}
 

@@ -95,6 +95,29 @@ def has_new_bits_seq(virgin: torch.Tensor, traces: torch.Tensor
             torch.zeros(0, dtype=torch.int32, device=traces.device)), virgin
 
 
+def has_new_bits_scan(virgin: torch.Tensor, traces: torch.Tensor,
+                      active: torch.Tensor
+                      ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``has_new_bits_seq`` without the loop over lanes, for traces
+    whose bytes may hold any bits: lane i is judged against ``virgin``
+    less the OR of the ACTIVE lanes' traces before it (an exclusive
+    prefix OR over the lanes, in log2(B) doubling steps), and only the
+    active lanes clear the map.  Returns (rets int32[B] for every lane,
+    the map after the active lanes)."""
+    b = traces.shape[0]
+    pre = torch.where(active[:, None], traces, 0).to(torch.uint8)
+    d = 1
+    while d < b:
+        pre[d:] = pre[d:] | pre[:-d]
+        d *= 2
+    before = torch.cat([torch.zeros_like(pre[:1]), pre[:-1]])
+    v = virgin[None, :] & ~before
+    new_count = ((traces & v) != 0).any(dim=1)
+    new_tuple = ((traces != 0) & (v == 0xFF)).any(dim=1)
+    rets = torch.where(new_tuple, 2, torch.where(new_count, 1, 0))
+    return rets.to(torch.int32), virgin & ~pre[-1] if b else virgin
+
+
 def has_new_bits_batch(virgin: torch.Tensor, traces: torch.Tensor,
                        hashes: torch.Tensor,
                        active: Optional[torch.Tensor] = None

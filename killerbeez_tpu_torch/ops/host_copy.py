@@ -1,10 +1,11 @@
 """Host copies of device tensors that start without blocking.
 
 The fuzzing loop and the generation loop's report read device results
-on the host one or more dispatches after enqueueing them: each copy
-goes to pinned memory with a non-blocking copy on the current stream
-and a CUDA event, and the host waits on the event only when it reads
-the values.
+on the host one or more dispatches after enqueueing them, and the
+mutators' prefetch reads candidates for host-executed targets: each
+copy goes to pinned memory with a non-blocking copy on the current
+stream and a CUDA event, and the host waits on the event only when it
+reads the values.
 """
 
 from __future__ import annotations
@@ -16,10 +17,13 @@ import torch
 class HostCopy:
     """A device tensor's host copy, started without blocking: a
     non-blocking copy into pinned memory plus a CUDA event, waited on
-    only when the host reads it.  CPU tensors are used as they are."""
+    only when the host reads it.  CPU tensors and numpy arrays (the
+    results of host-executed targets) are used as they are."""
 
-    def __init__(self, t: torch.Tensor):
+    def __init__(self, t):
         self._event = None
+        if isinstance(t, np.ndarray):
+            t = torch.from_numpy(t)
         if t.device.type == "cuda":
             self._host = torch.empty(t.shape, dtype=t.dtype,
                                      pin_memory=True)

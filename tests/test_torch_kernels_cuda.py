@@ -521,3 +521,56 @@ def test_mutators_never_wait_for_the_card(name, opts, cuda, tmp_path):
     for bufs, lens in got:
         rb, rl = ref.mutate_batch(bufs.shape[0])
         assert torch.equal(bufs.cpu(), rb) and torch.equal(lens.cpu(), rl)
+
+
+@pytest.mark.parametrize("device_triage", [0, 1])
+def test_host_batches_wait_only_for_their_copies(device_triage, cuda):
+    """The host-execution tier on the card: ``stdin afl havoc`` batches
+    of the port's own ``test`` build, each generating the next batch
+    while its processes run.  With the numpy triage, the batches after
+    the first run under sync debug mode "error": the host waits only
+    on the prefetched copies' events (which the mode does not count).
+    With ``device_triage`` 1 the triage reads its verdicts back at
+    once, so it runs outside the mode.  Both equal the CPU stack's
+    results, state and candidates."""
+    import json
+
+    import numpy as np
+
+    from killerbeez_tpu_torch.drivers import driver_factory
+    from killerbeez_tpu_torch.instrumentation import \
+        instrumentation_factory
+    from killerbeez_tpu_torch.mutators import mutator_factory
+    from killerbeez_tpu_torch.native.build import corpus_path
+    dopts = json.dumps({"path": corpus_path("test")})
+    iopts = json.dumps({"device_triage": device_triage})
+    stacks = {}
+    for dev in ("cuda", "cpu"):
+        instr = instrumentation_factory("afl", iopts, device=dev)
+        mut = mutator_factory("havoc", '{"seed": 3}', b"ABC@zzzz",
+                              device=dev)
+        stacks[dev] = driver_factory("stdin", dopts, instr, mut,
+                                     device=dev)
+    outs = {"cuda": [], "cpu": []}
+    drv = stacks["cuda"]
+    outs["cuda"].append(drv.test_batch(512, prefetch_next=512))
+    torch.cuda.synchronize()
+    if not device_triage:
+        torch.cuda.set_sync_debug_mode("error")
+    try:
+        for n, nxt in ((512, 300), (300, 0)):
+            outs["cuda"].append(drv.test_batch(n, pad_to=512,
+                                               prefetch_next=nxt))
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    for n in (512, 512, 300):
+        outs["cpu"].append(stacks["cpu"].test_batch(n, pad_to=512,
+                                                    prefetch_next=0))
+    for got, ref in zip(outs["cuda"], outs["cpu"]):
+        for a, b in zip(list(got.result) + [got.inputs, got.lengths],
+                        list(ref.result) + [ref.inputs, ref.lengths]):
+            np.testing.assert_array_equal(a, b)
+    assert stacks["cuda"].instrumentation.get_state() == \
+        stacks["cpu"].instrumentation.get_state()
+    for d in stacks.values():
+        d.instrumentation.cleanup()

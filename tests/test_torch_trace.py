@@ -202,11 +202,13 @@ def test_ipt_state_loads_and_merges_across_packages():
 
 
 def test_ipt_qemu_mode_exits_2(tmp_path, capsys):
+    """``qemu_mode`` runs a host binary, so the driver must name one:
+    without ``-d '{"path": ...}'`` the CLI exits 2 saying so."""
     argv = ["file", "ipt", "havoc", "-ss", "ABCD", "-o", str(tmp_path),
             "--device", "cpu", "-i", json.dumps({"qemu_mode": 1})]
     assert main(argv) == 2
     err = capsys.readouterr().err
-    assert "qemu_mode" in err and "not ported yet" in err
+    assert '"path"' in err and "host backends" in err
 
 
 # -- tracer / showmap --------------------------------------------------------
