@@ -139,13 +139,40 @@ It builds the CUDA kernels from ``killerbeez_tpu_torch/csrc`` and:
      with the share of each run spent waiting for the candidates' host
      copies; (d) ``-dt`` card == CPU (``.info`` text) and one ``ipt``
      ``qemu_mode`` batch on the card;
+  11. (run before the record) the crack and search tier: (a) the
+     branch-distance engine (plain torch on the card) == the CPU on
+     4096 lanes of ``tlvstack_vm`` and ``magicsum_vm`` with operand
+     capture on and off (the five ``VMResult`` fields, the float32
+     distances, the captures), focused ``havoc``, ``zzuf`` and ``afl``
+     (havoc tail) candidates at 65536 lanes == the CPU, a masked
+     65536-lane batch of the ``cuda_fused`` flagship running
+     ``kbz_vm_kernel`` over every lane and the next, unmasked one
+     ``kbz_fuzz_kernel``, the device
+     descent stepped == in-scan on the card, and the distance engine's
+     device ms per 1024-lane dispatch at ``magicsum_vm``'s 512 steps;
+     (b) card == CPU through ``cli.main`` at ``PIPELINE_DEPTH = 1``,
+     ``-b 1024 -K 1``: ``--crack 2`` on ``test`` from a blind seed (the
+     solver finds 'ABCD' and its crash), ``--crack 2 --vsa`` on
+     ``cgc_like``, ``--crack 2 --descend 16`` with each descent engine
+     on ``magicsum_vm`` (edge 4:5 descended) — md5 sets, ``-isd`` (its
+     ``total_execs`` apart by exactly the short tail batch's pad, which
+     the unfused CPU engine counts and the fused one does not, as in
+     the JAX package), ``-msd``, the solver cache and the
+     ``solver_*``/``search_*`` counters — and kb-solve, kb-lint and kb-descend card == CPU; (c)
+     the crack campaign at full width (``-b 65536``, ``cuda_fused``,
+     ``--crack 2 --descend 48``, device engine) on ``magicsum_vm`` in
+     turns with the same command without ``--crack``: a plateau, an
+     injection, ``kbz_fuzz_kernel`` and ``kbz_vm_kernel_all`` launches,
+     each run's execs/s and the crack's solve and descent seconds
+     beside the card's name and power limit;
   9. prints one ``{"kernels": [...]}`` line (launches: the first
-     host-driven, the first ``-G 16``, the first mesh, the first edges
-     and the first rare-edge flagship runs together; the all-lanes
-     ``kbz_vm_kernel`` row from the mesh's cuda-engine run, the
-     unfiltered ``ipt`` run, the rare-edge run's signer and phase 8c's
-     afl, zzuf and honggfuzz runs), then the card line, then the result
-     line ``{"ok": true, "device": {...}}`` last.  Each phase's wall
+     host-driven, the first ``-G 16``, the first mesh, the first edges,
+     the first rare-edge and the first crack flagship runs together;
+     the all-lanes ``kbz_vm_kernel`` row from the mesh's cuda-engine
+     run, the unfiltered ``ipt`` run, the rare-edge run's signer, phase
+     8c's afl, zzuf and honggfuzz runs and the first crack flagship
+     run), then the card line, then the result line ``{"ok": true,
+     "device": {...}}`` last.  Each phase's wall
      time is printed as it ends.
 
 Any failure raises: the script exits non-zero and prints no result.
@@ -1666,6 +1693,276 @@ def host_debug_and_qemu(fx):
           "(tip, tnt) pair(s)", flush=True)
 
 
+# -- the crack and search tier (phase 11) ---------------------------------
+
+#: phase 11c's full-width crack run length, in batches of B
+CRACK_BATCHES = 48
+
+
+def crack_seeds():
+    """Phase 11's seed files: a blind 8-byte seed (test, cgc_like) and
+    magicsum_vm's registered seed."""
+    from killerbeez_tpu_torch.models import targets_cgc
+    files = {"blind": OUT / "crack_blind.bin",
+             "magicsum": OUT / "crack_magicsum.bin"}
+    files["blind"].write_bytes(b"\x00" * 8)
+    files["magicsum"].write_bytes(targets_cgc.VM_SEEDS["magicsum_vm"][0]())
+    return files
+
+
+def distance_parity(card):
+    """11a: the distance engine, focused candidates and the device
+    descent, card against CPU; the distance engine's device time."""
+    import numpy as np
+    from killerbeez_tpu_torch.models.targets import get_target
+    from killerbeez_tpu_torch.models.vm import run_batch_distances
+    from killerbeez_tpu_torch.mutators import mutator_factory
+    from killerbeez_tpu_torch.search import DeviceDescent
+    from killerbeez_tpu_torch.search.objective import edge_objectives
+    from killerbeez_tpu_torch.tools.timing import timed
+    gen = torch.Generator().manual_seed(MUT_SEED)
+    for name in ("tlvstack_vm", "magicsum_vm"):
+        prog = get_target(name)
+        specs = tuple(o.spec() for f, t in zip(prog.edge_from, prog.edge_to)
+                      for o in edge_objectives(prog, (int(f), int(t))))[:8]
+        x = torch.randint(0, 256, (4096, 64), generator=gen,
+                          dtype=torch.uint8)
+        y = torch.randint(0, 65, (4096,), generator=gen, dtype=torch.int32)
+        for capture in (False, True):
+            cpu = run_batch_distances(prog, x, y, specs, capture)
+            dev = run_batch_distances(prog, x.cuda(), y.cuda(), specs,
+                                      capture)
+            err = max_abs_err(
+                list(cpu[0][:5]) + [cpu[1].view(torch.int32)]
+                + list(cpu[2:]),
+                [t.cpu() for t in list(dev[0][:5])
+                 + [dev[1].view(torch.int32)] + list(dev[2:])])
+            if err:
+                raise AssertionError(f"distance engine: card != CPU on "
+                                     f"{name} (capture {capture})")
+        print(f"distance engine ({name}, 4096 lanes, {len(specs)} specs, "
+              "capture off and on): card == CPU on every VMResult field, "
+              "the distances and the captures", flush=True)
+    seed = (OUT / "seed.bin").read_bytes()
+    for name, opts in (("havoc", {"seed": MUT_SEED}),
+                       ("zzuf", {"seed": MUT_SEED}),
+                       ("afl", {"seed": MUT_SEED,
+                                "skip_deterministic": 1})):
+        muts = {d: mutator_factory(name, json.dumps(opts), seed, device=d)
+                for d in ("cuda", "cpu")}
+        for m in muts.values():
+            m.set_focus_mask([0, 3, 9, 17, 33])
+        got, ref = muts["cuda"].mutate_batch(B), muts["cpu"].mutate_batch(B)
+        if max_abs_err([t.cpu() for t in got], ref):
+            raise AssertionError(f"focused {name}: card != CPU")
+    print(f"focused havoc, zzuf, afl (havoc tail) at {B} lanes: card == "
+          "CPU (bytes, lengths)", flush=True)
+    # a mask stands the fused path down: the flagship's driver runs the
+    # focused candidates through kbz_vm_kernel over every lane, and the
+    # fused kernel again once the mask clears
+    from killerbeez_tpu_torch.drivers.factory import driver_factory
+    from killerbeez_tpu_torch.instrumentation.factory import \
+        instrumentation_factory
+    from killerbeez_tpu_torch.ops.vm_kernel import LAUNCHES
+    instr = instrumentation_factory("jit_harness", json.dumps(
+        {"target": "tlvstack_vm", "engine": "cuda_fused",
+         "novelty": "throughput"}))
+    mut = mutator_factory("havoc", json.dumps({"seed": MUT_SEED}), seed)
+    drv = driver_factory("file", None, instr, mut)
+    twin = mutator_factory("havoc", json.dumps({"seed": MUT_SEED}), seed,
+                           device="cpu")
+    for m in (mut, twin):
+        m.set_focus_mask([0, 3, 9, 17, 33])
+    before = dict(LAUNCHES)
+    out = drv.test_batch(B)
+    masked = {k: LAUNCHES[k] - before[k] for k in LAUNCHES}
+    if masked != {"kbz_fuzz_kernel": 0, "kbz_vm_kernel": 0,
+                  "kbz_vm_kernel_all": 1} or \
+            max_abs_err([out.inputs.cpu(), out.lengths.cpu()],
+                        twin.mutate_batch(B)):
+        raise AssertionError(f"a focus mask did not stand the fused path "
+                             f"down ({masked})")
+    mut.set_focus_mask(None)
+    before = dict(LAUNCHES)
+    drv.test_batch(B)
+    if LAUNCHES["kbz_fuzz_kernel"] != before["kbz_fuzz_kernel"] + 1:
+        raise AssertionError("fusion did not resume once the mask cleared")
+    torch.cuda.synchronize()
+    print(f"focus mask on the cuda_fused flagship ({B} lanes): the masked "
+          f"batch ran kbz_vm_kernel over every lane ({masked}) on the "
+          "focused candidates (== CPU), the next one kbz_fuzz_kernel",
+          flush=True)
+    prog = get_target("magicsum_vm")
+    runs = []
+    for si, n in ((1, 8), (8, 1)):
+        eng = DeviceDescent(prog, (2, 4), [bytes(6)], lanes=256,
+                            scan_iters=si, i2s=False)
+        rows = [r for _ in range(n) for r in eng.dispatch()]
+        runs.append((eng.elite_front(), rows, eng.witnesses_total,
+                     eng.best_primary))
+    for a, b in zip(runs[0][0], runs[1][0]):
+        if not np.array_equal(a, b):
+            raise AssertionError("device descent: stepped != in-scan")
+    if runs[0][1:] != runs[1][1:]:
+        raise AssertionError("device descent: witnesses differ")
+    print("device descent on the card (magicsum_vm 2:4, 8 iterations, "
+          f"{eng.lanes} lanes): stepped == in-scan (elite order, "
+          "witnesses)", flush=True)
+    specs = tuple(o.spec() for o in edge_objectives(prog, (4, 5)))
+    x = torch.randint(0, 256, (1024, 64), generator=gen,
+                      dtype=torch.uint8).cuda()
+    y = torch.randint(0, 65, (1024,), generator=gen,
+                      dtype=torch.int32).cuda()
+    # the engine waits on the card every 16 steps to retire lanes, so
+    # the span between its events holds the host's enqueue gaps too
+    t = timed(lambda: run_batch_distances(prog, x, y, specs, True), 3)
+    print(f"distance engine: {t:.3f} ms event span per 1024-lane "
+          f"dispatch (magicsum_vm, max_steps {prog.max_steps}, "
+          f"{len(specs)} specs, capture on; median of 3) on {card}",
+          flush=True)
+
+
+def crack_state(out: Path):
+    """What the card and the CPU must agree on in a crack run: the
+    in-process summary plus the checkpoint's solver cache, VSA document
+    and solver/search counters."""
+    ck = json.loads((out / "corpus" / "checkpoint.json").read_text())
+    counters = ck["campaign"]["counters"]
+    return {"solver": ck.get("solver"), "vsa": ck.get("vsa"),
+            "counters": {k: v for k, v in counters.items()
+                         if k.startswith(("solver_", "search_"))}}
+
+
+def crack_cli_parity(seeds):
+    """11b: crack campaigns card == CPU at PIPELINE_DEPTH = 1, and the
+    three tools."""
+    from killerbeez_tpu_torch.tools import descend_tool, lint_tool, \
+        solve_tool
+    cases = (("test", "blind", ["--crack", "2"]),
+             ("cgc_like", "blind", ["--crack", "2", "--vsa"]),
+             ("magicsum_vm", "magicsum", ["--crack", "2", "--descend", "16",
+                                          "--descend-engine", "host"]),
+             ("magicsum_vm", "magicsum", ["--crack", "2", "--descend", "16",
+                                          "--descend-engine", "device"]))
+    for target, seed, extra in cases:
+        got = {}
+        label = f"{target} {' '.join(extra)}"
+        for dev, engine in (("cuda", "cuda_fused"), ("cpu", "torch")):
+            out = OUT / f"crack_{target}_{extra[-1]}_{dev}"
+            # -K 1: the card's fused path runs batch by batch, so the
+            # plateau check runs after every batch as on the CPU (a
+            # superbatch checks it once per K batches)
+            got[dev] = inprocess(
+                out, "-b", "1024", "-n", "16384", "-K", "1",
+                "--device", dev,
+                "--corpus-dir", str(out / "corpus"), "-i",
+                json.dumps({"target": target, "engine": engine,
+                            "novelty": "throughput"}), *extra,
+                mopts={"seed": 11}, seed=seeds[seed])
+            got[dev].update(crack_state(out))
+        # the injected lanes count toward -n, so the run ends on a short
+        # tail batch; the reference's fused engine counts that batch's
+        # requested lanes in total_execs, its unfused engine the padded
+        # rows (JAX jit_harness.py:606-609 against :509), and the port
+        # keeps both: the card's fused count is the CPU's less the pad
+        injected = int(got["cpu"]["counters"].get("solver_injected", 0))
+        pad = -(16384 - injected) % 1024
+        isd = {d: json.loads(got[d].pop("isd")) for d in got}
+        if isd["cuda"].pop("total_execs") + pad != \
+                isd["cpu"].pop("total_execs"):
+            raise AssertionError(f"crack campaign ({label}): total_execs "
+                                 "differs by more than the tail's pad")
+        if got["cuda"] != got["cpu"] or isd["cuda"] != isd["cpu"]:
+            diff = [k for k in got["cuda"] if got["cuda"][k] != got["cpu"][k]]
+            raise AssertionError(f"crack campaign ({label}): card != CPU "
+                                 f"in {diff or ['isd']}")
+        g = got["cuda"]
+        if not g["counters"].get("solver_attempts"):
+            raise AssertionError(f"crack campaign ({label}) never cracked")
+        if target == "test" and not (
+                any(v.get("input_hex") == b"ABCD".hex()
+                    for v in g["solver"].values())
+                and g["findings"]["crashes"]):
+            raise AssertionError("the solver did not find 'ABCD' and its "
+                                 "crash")
+        if "--vsa" in extra and g["vsa"] is None:
+            raise AssertionError("--vsa cached no VSA document")
+        if target == "magicsum_vm" and \
+                g["solver"].get("4:5", {}).get("status") != "descended":
+            raise AssertionError(f"crack campaign ({label}): edge 4:5 not "
+                                 "descended")
+        print(f"crack campaign ({label}, -b 1024, PIPELINE_DEPTH 1): card "
+              f"== CPU ({len(g['findings']['new_paths'])} new paths, "
+              f"{len(g['findings']['crashes'])} crashes, counters "
+              f"{g['counters']}, equal -msd, solver cache and -isd maps; "
+              f"total_execs apart by the tail's pad of {pad})", flush=True)
+
+    def tool(main, argv):
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            rc = main(argv)
+        return rc, buf.getvalue()
+
+    for label, main, argv, per_device in (
+            ("kb-solve", solve_tool.main, ["magicsum_vm", "--json"], False),
+            ("kb-lint", lint_tool.main, ["--json", "--vsa"], False),
+            ("kb-descend", descend_tool.main,
+             ["magicsum_vm", "--lanes", "256", "--budget", "8", "--json",
+              "--edge", "4:5"], True)):
+        outs = [tool(main, argv + (["--device", d] if per_device else []))
+                for d in ("cuda", "cpu")]
+        if outs[0] != outs[1]:
+            raise AssertionError(f"{label}: card output != CPU output")
+        print(f"{label} {' '.join(argv)}: exit {outs[0][0]}, card output "
+              "== CPU output", flush=True)
+
+
+def crack_flagships(card, seeds):
+    """11c: the crack campaign at full width in turns with the same
+    command without --crack; returns the first crack run's launches."""
+    iopts = {"target": "magicsum_vm", "engine": "cuda_fused",
+             "novelty": "throughput"}
+    crack_args = ["--crack", "2", "--descend", "48",
+                  "--descend-engine", "device"]
+    rates = {"crack": [], "plain": []}
+    first = None
+    for mode, name in (("crack", "crack_flagship"),
+                       ("plain", "crack_plain"), ("plain", "crack_plain_2"),
+                       ("crack", "crack_flagship_2")):
+        args = (crack_args + ["--corpus-dir", str(OUT / name / "corpus")]
+                if mode == "crack" else [])
+        need = (("kbz_fuzz_kernel", "kbz_vm_kernel_all")
+                if mode == "crack" else ("kbz_fuzz_kernel",))
+        launches, rate, out = flagship(
+            name, *args, batches=CRACK_BATCHES, iopts=iopts, need=need,
+            seed=seeds["magicsum"])
+        rates[mode].append(rate)
+        if mode != "crack":
+            continue
+        first = first or launches
+        evs = events(out)
+        kinds = {e["type"] for e in evs}
+        if not {"plateau", "crack_injection"} <= kinds:
+            raise AssertionError(f"{name}: no plateau or no injection")
+        counters = crack_state(out)["counters"]
+        if not counters.get("solver_injected"):
+            raise AssertionError(f"{name}: nothing injected")
+        log = (OUT / f"{name}.log").read_text()
+        solve = re.search(r"solve attempts \(([0-9.]+)s\)", log)
+        descend = re.search(r"descend: .* \(([0-9.]+)s\)", log)
+        print(f"crack flagship ({name}): {counters}; solve "
+              f"{solve.group(1) if solve else 'n/a'} s (descent included), "
+              f"descent {descend.group(1) if descend else 'n/a'} s; "
+              f"descents {[(e['edge'], e['status'], e['dispatches']) for e in evs if e['type'] == 'descent']}",
+              flush=True)
+    print(f"crack flagship execs/s on {card} ({CRACK_BATCHES} batches of "
+          f"{B}, magicsum_vm): --crack 2 --descend 48 "
+          f"{', '.join(f'{r:.0f}' for r in rates['crack'])}; without "
+          f"--crack {', '.join(f'{r:.0f}' for r in rates['plain'])} (in "
+          "turns: crack, plain, plain, crack)", flush=True)
+    return first
+
+
 class Phases:
     """Prints each phase's wall time as the next one starts."""
 
@@ -2064,22 +2361,34 @@ def main() -> int:
     host_flagships(fx, card)
     host_debug_and_qemu(fx)
 
+    # -- phase 11: the crack and search tier ---------------------------
+    phases.start("11a (distance engine, focus, descent)")
+    crack_files = crack_seeds()
+    distance_parity(card)
+    phases.start("11b (crack CLI parity, tools)")
+    crack_cli_parity(crack_files)
+    phases.start("11c (crack flagship)")
+    crack_launches = crack_flagships(card, crack_files)
+
     # -- phase 9: the record -------------------------------------------
     phases.start("9 (record)")
     print(f"main-path launches: host-driven {launches}, -G 16 "
           f"{gen_launches}, --mesh 1,1 {mesh_launches[0]}, --mesh 1,1 -G "
           f"16 {mesh_launches[1]}, --mesh 1,1 engine cuda "
           f"{vm_all_launches}, ipt {ipt_launches}, edges {edges_launches}, "
-          f"rare-edge {rare_launches}, mutators {mut_launches}; over this "
+          f"rare-edge {rare_launches}, mutators {mut_launches}, crack "
+          f"{crack_launches}; over this "
           f"whole run: {vk.LAUNCHES}, of which in its CLI runs "
           f"{CLI_LAUNCHES}",
           flush=True)
     launches = {k: launches[k] + gen_launches[k] + mesh_launches[0][k]
                 + mesh_launches[1][k] + edges_launches[k] + rare_launches[k]
+                + crack_launches[k]
                 for k in launches}
     all_lanes = (vm_all_launches["kbz_vm_kernel_all"]
                  + ipt_launches["kbz_vm_kernel_all"]
                  + rare_launches["kbz_vm_kernel_all"]
+                 + crack_launches["kbz_vm_kernel_all"]
                  + sum(m["kbz_vm_kernel_all"]
                        for m in mut_launches.values()))
     kernels = [

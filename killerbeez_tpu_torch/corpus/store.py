@@ -376,9 +376,10 @@ class CorpusStore:
     # load_state / load_component_state read the CHECKPOINT first (the
     # unified epoch is the source of truth) and fall back to the
     # legacy per-file layout, so pre-checkpoint campaigns keep
-    # working.  The solver cache and the VSA document of a JAX
-    # campaign ride the checkpoint's sections, which save_checkpoint
-    # carries forward; the port reads neither yet.
+    # working.  The crack stage's solver cache and VSA document ride
+    # the checkpoint's "solver" and "vsa" sections (below), in the JAX
+    # package's format, so either package resumes the other's crack
+    # campaign.
 
     def save_state(self, state: Dict[str, Any]) -> None:
         try:
@@ -409,4 +410,64 @@ class CorpusStore:
             with open(os.path.join(self.root, name)) as f:
                 return f.read()
         except OSError:
+            return None
+
+    # -- solver cache (crack stage) -------------------------------------
+
+    def save_solver_cache(self, cache: Dict[str, Any]) -> None:
+        """Per-edge solve results ("f:t" -> {status, input_hex,
+        reason}) — the solver is a pure function of the program, so a
+        resumed campaign re-injects/skips instead of re-solving.
+        Loop-attached crackers persist through the unified checkpoint
+        instead (fuzzer._persist_campaign); this file remains the
+        offline-tool path.  When a checkpoint already exists the
+        cache ALSO writes through a fresh epoch — checkpoint-first
+        loaders would otherwise shadow these newer verdicts with the
+        epoch's stale solver section."""
+        try:
+            _atomic_write(os.path.join(self.root, SOLVER_STATE_FILE),
+                          json.dumps(cache).encode())
+        except OSError as e:
+            WARNING_MSG("solver cache write failed: %s", e)
+        if self.load_checkpoint() is not None:
+            self.save_checkpoint({"solver": dict(cache)})
+
+    def load_solver_cache(self) -> Dict[str, Any]:
+        ck = self.load_checkpoint()
+        if ck and isinstance(ck.get("solver"), dict):
+            return ck["solver"]
+        try:
+            with open(os.path.join(self.root, SOLVER_STATE_FILE)) as f:
+                d = json.load(f)
+            return d if isinstance(d, dict) else {}
+        except (OSError, ValueError):
+            return {}
+
+    # -- VSA document (value-set fixpoint; analysis/vsa.py) -------------
+
+    def save_vsa_doc(self, doc: Dict[str, Any]) -> None:
+        """The serialized value-set fixpoint (``VsaResult.to_doc``) —
+        a pure function of the program, keyed by ``program_sig``, so
+        ``--resume`` and repeated cracks never re-run the analysis.
+        Same dual-write discipline as the solver cache: standalone
+        file for offline tools, write-through epoch when a checkpoint
+        exists (checkpoint-first loaders must not shadow a newer doc
+        with a stale ``vsa`` section)."""
+        try:
+            _atomic_write(os.path.join(self.root, VSA_STATE_FILE),
+                          json.dumps(doc).encode())
+        except OSError as e:
+            WARNING_MSG("vsa doc write failed: %s", e)
+        if self.load_checkpoint() is not None:
+            self.save_checkpoint({"vsa": dict(doc)})
+
+    def load_vsa_doc(self) -> Optional[Dict[str, Any]]:
+        ck = self.load_checkpoint()
+        if ck and isinstance(ck.get("vsa"), dict):
+            return ck["vsa"]
+        try:
+            with open(os.path.join(self.root, VSA_STATE_FILE)) as f:
+                d = json.load(f)
+            return d if isinstance(d, dict) else None
+        except (OSError, ValueError):
             return None

@@ -27,8 +27,12 @@ re-runs each unique crash under the ptrace debug tier and writes
 execution: on a side instrumentation with edge reporting (on the same
 device) for KBVM targets, on the live target for host targets; KBVM
 targets also prime the scheduler with the program's static edge
-prior.  Runs on the CUDA card unless ``--device cpu`` is given.  Flags
-whose machinery is not ported yet are accepted by the parser and
+prior.  ``--crack N`` solves never-hit static edges into inputs after
+N finding-free batches and injects them (``--vsa`` seeds the solver
+from the value-set fixpoint, ``--descend M`` escalates the solver's
+unknowns to branch-distance descent, ``--no-focus`` keeps the mutators
+unfocused).  Runs on the CUDA card unless ``--device cpu`` is given.
+Flags whose machinery is not ported yet are accepted by the parser and
 refused with exit status 2, naming the flag.
 Exit 86: the watchdog killed a stuck device wait; exit 87: the card
 was lost (both after a checkpoint, for a supervisor to ``--resume``).
@@ -64,11 +68,9 @@ UNPORTED = (
     (("--gossip-host",), None), (("--gossip-advertise",), None),
     (("--hybrid",), None), (("--hybrid-repeats",), None),
     (("--hybrid-queue",), None), (("--hybrid-workers",), None),
-    (("--auto-repair",), "?"), (("--crack",), "?"), (("--vsa",), "?"),
-    (("--descend",), "?"), (("--descend-lanes",), None),
-    (("--descend-engine",), None), (("--descend-scan-iters",), None),
+    (("--auto-repair",), "?"),
     (("--learn",), "?"), (("--learn-interval",), None),
-    (("--no-focus",), "?"), (("--stateful",), "?"),
+    (("--stateful",), "?"),
 )
 _NOT_GIVEN = object()
 
@@ -130,6 +132,58 @@ def build_parser() -> argparse.ArgumentParser:
                         "holding the corpus-wide rarest edges, each "
                         "admission signed by one extra execution; rr: "
                         "round-robin)")
+    p.add_argument("--crack", type=int, nargs="?", const=16, default=0,
+                   metavar="N",
+                   help="plateau crack stage (KBVM targets): "
+                        "after N batches with no new paths (default "
+                        "16 when the flag is bare), solve statically-"
+                        "reachable-but-never-hit edges into concrete "
+                        "inputs (analysis/solver.py) and inject them; "
+                        "solve results persist to the corpus store's "
+                        "solver.json so resumes don't re-solve")
+    p.add_argument("--vsa", action="store_true",
+                   help="with --crack: seed the solver's byte "
+                        "domains from the value-set fixpoint "
+                        "(analysis/vsa.py) and escalate visit caps "
+                        "on honest visit-cap unknowns; the fixpoint "
+                        "document caches in the corpus checkpoint "
+                        "epoch so --resume and repeated cracks "
+                        "never re-run it")
+    p.add_argument("--descend", type=int, nargs="?", const=48,
+                   default=0, metavar="N",
+                   help="with --crack: escalate solver-UNKNOWN edges "
+                        "(checksum loops, deep loop-carried state) to "
+                        "the gradient-guided search tier — batched "
+                        "branch-distance descent on the card, up to N "
+                        "iterations per edge (default 48 when bare); "
+                        "verified witnesses inject like solved "
+                        "inputs, verdicts cache in solver.json so "
+                        "--resume never re-descends")
+    p.add_argument("--descend-lanes", type=int, default=1024,
+                   metavar="B",
+                   help="candidate lanes per descent dispatch "
+                        "(default 1024)")
+    p.add_argument("--descend-engine", choices=("device", "host"),
+                   default="device",
+                   help="descent engine: 'device' (default) fuses R "
+                        "rank->probe->mutate->re-score iterations "
+                        "into one dispatch with input-to-state "
+                        "operand matching (search/device_descent.py; "
+                        "stands down to the host engine on edges it "
+                        "cannot take), 'host' forces the "
+                        "host-driven engine (search/descent.py)")
+    p.add_argument("--descend-scan-iters", type=int, default=0,
+                   metavar="R",
+                   help="with --descend-engine device: iterations "
+                        "per device dispatch (default 8; the gauge "
+                        "descent_iterations_per_dispatch shows the "
+                        "live value)")
+    p.add_argument("--no-focus", action="store_true",
+                   help="with --crack: do NOT install the Angora-"
+                        "style focused-mutation byte masks derived "
+                        "from the uncovered frontier's dependency "
+                        "sets (mutators then keep their exact "
+                        "unfocused candidate streams)")
     p.add_argument("-dt", "--debug-triage", action="store_true",
                    help="re-run each unique crash once under the "
                         "ptrace debug tier and save signal-level "
@@ -373,6 +427,33 @@ def main(argv: Optional[List[str]] = None) -> int:
         if args.schedule == "rare-edge":
             _wire_rare_edge_signer(fuzzer, driver)
             _wire_static_prior(fuzzer, driver)
+        if args.descend and not args.crack:
+            print("error: --descend escalates the crack stage's "
+                  "solver-unknown frontier — it needs --crack",
+                  file=sys.stderr)
+            return 2
+        if args.vsa and not args.crack:
+            print("error: --vsa seeds the crack stage's solver "
+                  "from the value-set fixpoint — it needs --crack",
+                  file=sys.stderr)
+            return 2
+        if args.crack:
+            prog = getattr(instrumentation, "program", None)
+            if prog is None or not instrumentation.device_backed \
+                    or args.mesh:
+                print("error: --crack needs a KBVM device target "
+                      "(jit_harness, single-device) — the solver works "
+                      "on the program text", file=sys.stderr)
+                return 2
+            from .crack import BranchCracker
+            fuzzer.cracker = BranchCracker(
+                prog, plateau_batches=args.crack,
+                focus=not args.no_focus, store=fuzzer.store,
+                descend=args.descend,
+                descend_lanes=args.descend_lanes,
+                descend_engine=args.descend_engine,
+                descend_scan_iters=args.descend_scan_iters,
+                vsa=args.vsa, device=args.device)
         try:
             stats = fuzzer.run(args.iterations)
         except Exception as e:

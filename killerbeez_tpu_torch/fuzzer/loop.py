@@ -39,8 +39,14 @@ single-exec loop, one input at a time.  ``debug_triage`` (CLI ``-dt``)
 re-runs each unique crash once under the ptrace debug tier and writes
 its signal-level details next to the repro.
 
-Not ported yet: the crack and repair stages, sync, and the learn and
-hybrid tiers.
+The plateau crack stage (``fuzzer/crack.py``, CLI ``--crack``) hangs
+off the host-driven loop: after each triage it may solve uncovered
+edges, inject the solved inputs and install a focus mask, which stands
+the fused path (and ``-G``) down until it clears; its solver cache
+rides the campaign checkpoint.
+
+Not ported yet: the repair stage, sync, and the learn and hybrid
+tiers.
 """
 
 from __future__ import annotations
@@ -232,6 +238,11 @@ class Fuzzer:
         #: optional signature hook: bytes -> [edge slot, ...] for the
         #: entry sidecar (--schedule rare-edge; the CLI installs it)
         self._signer = None
+        #: optional plateau crack stage (fuzzer/crack.py): solves
+        #: statically-reachable-but-never-hit edges into concrete
+        #: inputs when coverage stalls, and feeds the focused-
+        #: mutation masks; installed by the CLI's --crack wiring
+        self.cracker = None
         #: monotone dispatched-batch counter — the flight recorder
         #: maps it onto PIPELINE_DEPTH trace lanes (seq % depth)
         self._batch_seq = 0
@@ -327,6 +338,8 @@ class Fuzzer:
                               if base else None),
             "saved_at": t,
         }}
+        if self.cracker is not None:
+            doc["solver"] = self.cracker.cache
         if self.telemetry.events is not None:
             # the log's high-water at save time: resume anchors seq
             # at max(file tail, checkpoint)
@@ -974,6 +987,17 @@ class Fuzzer:
                         self._credit_period()
                         if self.scheduler.arms:
                             self._rotate_seed(mut)
+                # plateau crack: when no new paths for N batches,
+                # solve uncovered static edges into inputs and inject
+                # them ahead of the scheduler (the injected execs
+                # triage synchronously — the pipeline keeps flowing).
+                # Ready batches are triaged first so the plateau
+                # verdict reads coverage as fresh as non-blocking
+                # probes allow.
+                if self.cracker is not None:
+                    with self.telemetry.timer("corpus_feedback"):
+                        self._drain_ready(pending)
+                        self.cracker.maybe_crack(self)
                 # a superbatch may not stride over a feedback rotation
                 # boundary (the check above only fires at loop top):
                 # engage only when the next boundary is at least K
@@ -992,7 +1016,12 @@ class Fuzzer:
                         and self._remaining(n_iterations)
                         >= accumulate * self.batch_size
                         and mut.remaining()
-                        >= accumulate * self.batch_size):
+                        >= accumulate * self.batch_size
+                        # re-checked per batch: a crack-stage focus
+                        # mask drops fused eligibility (the fused
+                        # kernel draws its own edit positions and
+                        # would silently ignore the mask)
+                        and self.driver.supports_fused_multi()):
                     self._run_superbatch(accumulate, pending, depth)
                     self._profile_count(accumulate)
                     continue
@@ -1238,10 +1267,10 @@ class Fuzzer:
         drains findings + the admission ledger.  Double-buffered (a
         dispatch is G batches long, so depth 2 keeps the card fed);
         stands down to the host-driven loop — with a named warning —
-        when the driver/mutator can't run the generation loop (the
-        superbatch path's discipline).  With corpus feedback off,
-        device reseeding is off too and the candidate stream is
-        bit-identical to the host loop's."""
+        when the crack stage is active or the driver/mutator can't run
+        the generation loop (the superbatch path's discipline).  With
+        corpus feedback off, device reseeding is off too and the
+        candidate stream is bit-identical to the host loop's."""
         drv = self.driver
         mut = drv.mutator
         g_max = max(int(self.generations), 1)
@@ -1250,7 +1279,8 @@ class Fuzzer:
         reg = self.telemetry.registry
         # mesh campaigns execute whole mesh batches per generation
         quantum = getattr(drv, "batch_quantum", 1)
-        stood_down = not drv.supports_batch_generations()
+        stood_down = self.cracker is not None \
+            or not drv.supports_batch_generations()
         pending: "deque" = deque()
         if not stood_down:
             self._pending = pending     # watchdog-dump visibility
@@ -1318,8 +1348,12 @@ class Fuzzer:
         if stood_down:
             if not self._gen_warned:
                 self._gen_warned = True
-                WARNING_MSG("--generations stood down: the driver/mutator "
-                            "cannot run the device generation loop (needs "
-                            "jit_harness + a fused-capable mutator, no "
-                            "focus mask) — running the host-driven loop")
+                reason = ("the crack stage injects host-side "
+                          "candidates and focus masks"
+                          if self.cracker is not None else
+                          "the driver/mutator cannot run the device "
+                          "generation loop (needs jit_harness + a "
+                          "fused-capable mutator, no focus mask)")
+                WARNING_MSG("--generations stood down: %s — running "
+                            "the host-driven loop", reason)
             self._run_batched(n_iterations)

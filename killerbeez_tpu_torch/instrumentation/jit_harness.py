@@ -402,6 +402,12 @@ class JitHarnessInstrumentation(Instrumentation):
                 "mutator (havoc); %s mutates separately — running the "
                 "unfused cuda engine",
                 getattr(mutator, "name", type(mutator).__name__))
+        if getattr(mutator, "focus_positions", None) is not None:
+            # a focus mask (crack-stage frontier bytes) is honored
+            # only by the mutate-then-execute path; the fused kernel
+            # draws its own edit positions and would drop the mask, so
+            # fusion stands down until the mask clears
+            return False
         return self.engine in ("cuda", "cuda_fused") and fusable
 
     def _fused_inputs(self, mutator, its):

@@ -570,6 +570,189 @@ def run_batch(program: Program, inputs: torch.Tensor,
                            record_stream)
 
 
+# --------------------------------------------------------------------
+# Distance-returning execute variant (the gradient-search objective)
+# --------------------------------------------------------------------
+#
+# Angora (arxiv 1803.01307) treats an uncracked branch as a black-box
+# distance function over the input bytes and descends it; the batched
+# engine makes the expensive half of that — "evaluate the objective on
+# thousands of candidate inputs" — one device dispatch.  The variant
+# below threads a per-lane best-distance accumulator through the SAME
+# ``_step_batched`` transition as the production engine: coverage
+# counts, statuses, steps and path hashes are bit-identical when the
+# distance output is ignored.  It runs as plain torch ops on the card
+# too (the JAX package runs it in XLA, outside any Pallas kernel).
+
+#: distance of a lane that never reached the target branch while in
+#: the objective's source block (float32-representable "infinity")
+DIST_UNREACHED = 3.0e38
+
+
+def _branch_distance(sel: int, x, y):
+    """Angora's branch-distance table for ONE comparison direction:
+    0.0 exactly when ``x <sel> y`` holds (judged in exact int32), a
+    positive float32 magnitude otherwise (at least 1).  ``sel`` is the
+    CANONICAL compare — callers wanting the fall-through successor
+    pass the negated compare (eq<->ne, lt<->ge), so distance 0 always
+    means "the branch goes the way the target edge needs".  ``x``/``y``
+    are int64 tensors holding int32 values."""
+    xf = x.to(torch.int32).to(torch.float32)
+    yf = y.to(torch.int32).to(torch.float32)
+    if sel == CMP_EQ:
+        sat = x == y
+        mag = (xf - yf).abs()
+    elif sel == CMP_NE:
+        sat = x != y
+        mag = torch.ones_like(xf)
+    elif sel == CMP_LT:
+        sat = x < y
+        mag = xf - yf + 1.0
+    else:  # CMP_GE
+        sat = x >= y
+        mag = yf - xf
+    return torch.where(sat, torch.zeros_like(mag), mag.clamp(min=1.0))
+
+
+def _dist_loop_core(instrs, edge_table, inputs, lengths, mem_size,
+                    max_steps, n_edges, specs, capture):
+    """``_run_batch_impl`` plus per-lane min-distance accumulators
+    for K observed branches at once — the shared core of
+    ``run_batch_distances`` and the device descent loop
+    (``search/device_descent.py``).
+
+    ``specs`` is a tuple of ``(branch_pc, from_idx, sel, x_idx,
+    y_idx)`` tuples.  Each distance is sampled from the state ENTERING
+    a step, before ``_step_batched`` runs it, whenever a still-running
+    lane is about to execute that branch pc with that source block as
+    its last block (``prev_idx == from_idx + 1`` — the edge-table row
+    key), so the observations never perturb the transition.
+
+    ``capture`` also records the CONCRETE compare operand values at
+    the min-distance sample of each spec: int32[B, K] ``x``/``y``
+    register values (zeros-shaped [B, 0] when capture is off).
+
+    Lanes that stopped running retire every 16 steps, as in
+    ``_run_batch_impl``: a stopped lane samples nothing more.
+    Returns ``(VMResult, best float32[B, K], cap_x, cap_y)``."""
+    dev = inputs.device
+    b = inputs.shape[0]
+    k_n = len(specs)
+    k_cap = k_n if capture else 0
+
+    def zeros(*shape):
+        return torch.zeros(shape, dtype=torch.int64, device=dev)
+
+    out = VMResult(status=torch.full((b,), FUZZ_RUNNING, dtype=torch.int32,
+                                     device=dev),
+                   exit_code=torch.zeros(b, dtype=torch.int32, device=dev),
+                   counts=torch.zeros((b, n_edges + 1), dtype=torch.uint8,
+                                      device=dev),
+                   steps=torch.zeros(b, dtype=torch.int32, device=dev),
+                   path_hash=zeros(b))
+    best_out = torch.full((b, k_n), DIST_UNREACHED, dtype=torch.float32,
+                          device=dev)
+    cx_out = torch.zeros((b, k_cap), dtype=torch.int32, device=dev)
+    cy_out = torch.zeros((b, k_cap), dtype=torch.int32, device=dev)
+    state = (zeros(b), zeros(b, N_REGS + 1), zeros(b, mem_size + 1),
+             torch.full((b,), FUZZ_RUNNING, dtype=torch.int64, device=dev),
+             zeros(b), zeros(b), zeros(b, n_edges + 1), zeros(b), zeros(b),
+             zeros(b))
+    best, cap_x, cap_y = best_out.clone(), cx_out.clone(), cy_out.clone()
+    instrs = instrs.to(device=dev, dtype=torch.int64)
+    edge_table = edge_table.to(device=dev, dtype=torch.int64)
+    inputs = inputs.to(torch.int64)
+    lengths = lengths.to(device=dev, dtype=torch.int64)
+    lanes = torch.arange(b, device=dev)
+
+    def retire(sel):
+        idx = lanes[sel]
+        out.status[idx] = state[3][sel].to(torch.int32)
+        out.exit_code[idx] = state[4][sel].to(torch.int32)
+        out.counts[idx] = (state[6][sel] & 0xFF).to(torch.uint8)
+        out.steps[idx] = state[8][sel].to(torch.int32)
+        out.path_hash[idx] = state[7][sel]
+        best_out[idx] = best[sel]
+        cx_out[idx] = cap_x[sel]
+        cy_out[idx] = cap_y[sel]
+
+    for i in range(max_steps):
+        if i % 16 == 0:
+            running = state[3] == FUZZ_RUNNING
+            if not bool(running.all()):
+                retire(~running)
+                if not bool(running.any()):
+                    lanes = lanes[:0]
+                    break
+                state = tuple(t[running] for t in state)
+                best, cap_x, cap_y = (best[running], cap_x[running],
+                                      cap_y[running])
+                inputs, lengths, lanes = (inputs[running],
+                                          lengths[running],
+                                          lanes[running])
+        pc, regs, prev_idx = state[0], state[1], state[5]
+        running = state[3] == FUZZ_RUNNING
+        for k, (branch_pc, from_idx, sel, x_idx, y_idx) in \
+                enumerate(specs):
+            at = (pc == branch_pc) & (prev_idx == from_idx + 1) & running
+            x, y = regs[:, x_idx], regs[:, y_idx]
+            d = _branch_distance(sel, x, y)
+            cur = best[:, k]
+            if capture:
+                upd = at & (d < cur)
+                cap_x[:, k] = torch.where(upd, x.to(torch.int32),
+                                          cap_x[:, k])
+                cap_y[:, k] = torch.where(upd, y.to(torch.int32),
+                                          cap_y[:, k])
+            best[:, k] = torch.where(at, torch.minimum(cur, d), cur)
+        state, _ = _step_batched(instrs, edge_table, inputs, lengths,
+                                 mem_size, state)
+    if lanes.numel():
+        retire(torch.ones(lanes.shape[0], dtype=torch.bool, device=dev))
+    return out, best_out, cx_out, cy_out
+
+
+def run_batch_distances(program: Program, inputs: torch.Tensor,
+                        lengths: torch.Tensor, specs,
+                        capture_operands: bool = False):
+    """Execute a uint8[B, L] candidate batch (on its device) and
+    return, per lane, the minimum branch distance observed at each of
+    the K ``specs`` (tuples of ``(branch_pc, from_idx, sel, x_idx,
+    y_idx)``) — float32[B, K], ``DIST_UNREACHED`` where never
+    sampled.  The VMResult is bit-identical to ``run_batch(...,
+    record_stream=False)``.  ``search/objective.py`` derives specs
+    from target edges.
+
+    ``capture_operands=True`` returns ``(res, dists, cap_x, cap_y)``
+    where the int32[B, K] capture arrays hold the concrete compare
+    operand values observed at each spec's min-distance sample (0
+    where never sampled — check ``dists`` for reachability)."""
+    specs = tuple(tuple(int(v) for v in s) for s in specs)
+    if not specs:
+        raise ValueError("at least one branch spec is required")
+    dev = inputs.device
+    res, best, cap_x, cap_y = _dist_loop_core(
+        torch.as_tensor(program.instrs, device=dev),
+        torch.as_tensor(program.edge_table, device=dev), inputs, lengths,
+        program.mem_size, program.max_steps, program.n_edges, specs,
+        capture_operands)
+    if capture_operands:
+        return res, best, cap_x, cap_y
+    return res, best
+
+
+def run_batch_distance(program: Program, inputs: torch.Tensor,
+                       lengths: torch.Tensor, *, branch_pc: int,
+                       from_idx: int, sel: int, x_idx: int,
+                       y_idx: int) -> Tuple[VMResult, torch.Tensor]:
+    """Single-branch convenience wrapper over ``run_batch_distances``
+    (returns float32[B])."""
+    res, best = run_batch_distances(
+        program, inputs, lengths,
+        ((branch_pc, from_idx, sel, x_idx, y_idx),))
+    return res, best[:, 0]
+
+
 def compile_runner(program: Program, record_stream: bool = True):
     """A ``(inputs, lengths) -> VMResult`` closure over ``program``
     (the plain engine, the stream recorded by default as in the JAX

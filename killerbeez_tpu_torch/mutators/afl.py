@@ -96,6 +96,12 @@ class AflMutator(_KeyedMutator):
                              device=self.device)
         words = havoc_words_for_keys(prng.fold_in(self._base_key(), local),
                                      sp)
+        if self.focus_positions is not None:
+            # the focus mask applies to the havoc tail only: the
+            # deterministic stages are position-exhaustive walks whose
+            # iteration contract must not change under a mask
+            return mc.havoc_focus_at(self._seed_on_device(), self.seed_len,
+                                     words, self._focus_on_device(), sp)
         return mc.havoc_at(self._seed_on_device(), self.seed_len, words, sp)
 
     def _generate(self, its: np.ndarray):

@@ -162,12 +162,52 @@ class Mutator:
         return torch.arange(start, start + len(its), dtype=torch.int64,
                             device=self.device)
 
-    #: focus byte masks (the crack stage / learn tier) are not ported
-    focus_positions = None
+    # -- focused mutation (Angora-style byte masks) ---------------------
 
-    def set_focus_mask(self, positions, pad_pow2: bool = False) -> None:
-        raise NotImplementedError("focused mutation (set_focus_mask) is "
-                                  "not ported yet")
+    #: optional int32[P] byte positions mutation should concentrate
+    #: on (the frontier-dependency mask from the static layer); None
+    #: = unfocused.  Mutators that can honor it do (havoc, zzuf, the
+    #: afl havoc tail); deterministic walks ignore it — their
+    #: iteration contract is position-exhaustive by definition.
+    focus_positions = None
+    #: the installed mask on the device (``_focus_on_device``)
+    _focus_dev = None
+
+    def set_focus_mask(self, positions, pad_pow2: bool = False
+                       ) -> None:
+        """Install (or clear, with None/empty) the focus byte mask.
+        Positions beyond the candidate buffer are dropped; an empty
+        surviving set clears the mask — a mask must never silently
+        pin mutation to nothing.
+
+        ``pad_pow2`` cycles the surviving set up to the next
+        power-of-two length (the JAX package's focused kernels
+        specialize on the position-array shape; the padded set is
+        kept here so both packages draw from the same array).
+        Repeats only skew the uniform pick WITHIN the mask (still a
+        masked position)."""
+        if positions is not None:
+            positions = sorted({int(p) for p in positions
+                                if 0 <= int(p) < self.max_length})
+        if not positions:
+            self.focus_positions = None
+        else:
+            if pad_pow2:
+                want = 1 << (len(positions) - 1).bit_length()
+                positions = (positions * ((want + len(positions) - 1)
+                                          // len(positions)))[:want]
+            self.focus_positions = np.asarray(positions, dtype=np.int32)
+        self._stash = None  # prefetched candidates used the old mask
+        self._focus_dev = None
+
+    def _focus_on_device(self) -> torch.Tensor:
+        """The focus mask as an int64 tensor on the mutator's device,
+        copied once per installed mask (a pageable copy per batch
+        would wait for the card)."""
+        if self._focus_dev is None:
+            self._focus_dev = torch.as_tensor(
+                self.focus_positions, dtype=torch.int64, device=self.device)
+        return self._focus_dev
 
     # -- iteration bookkeeping -----------------------------------------
 

@@ -57,6 +57,9 @@ class HavocMutator(_KeyedMutator):
     def _generate(self, its):
         sp = int(self.options["stack_pow2"])
         words = havoc_words_for_keys(self._keys(its), sp)
+        if self.focus_positions is not None:
+            return mc.havoc_focus_at(self._seed_on_device(), self.seed_len,
+                                     words, self._focus_on_device(), sp)
         return mc.havoc_at(self._seed_on_device(), self.seed_len, words, sp)
 
     def fused_spec(self):
@@ -84,9 +87,13 @@ class ZzufMutator(_KeyedMutator):
             raise ValueError("ratio_bits must be in (0, 1]")
 
     def _generate(self, its):
+        ratio = float(self.options["ratio_bits"])
+        if self.focus_positions is not None:
+            return mc.zzuf_focus_at(self._seed_on_device(), self.seed_len,
+                                    self._keys(its), self._focus_on_device(),
+                                    ratio)
         return mc.zzuf_at(self._seed_on_device(), self.seed_len,
-                          self._keys(its),
-                          float(self.options["ratio_bits"]))
+                          self._keys(its), ratio)
 
 
 class NiMutator(_KeyedMutator):

@@ -62,14 +62,15 @@ def _table(values, mask, device):
     return t
 
 
-def _havoc_one(buf, length, w):
+def _havoc_one(buf, length, w, positions=None):
     """One stacked havoc edit for every lane.
 
     buf int64[B, L] byte values, length int64[B], w int64[B, 8] uint32
-    words.  Returns (buf', length').  Op table (AFL havoc mix): 0 bit
-    flip, 1-3 interesting 8/16/32, 4-9 arith +/- on 8/16/32, 10 xor
-    byte, 11-12 delete block, 13 insert clone/fill block, 14 overwrite
-    clone/fill block — each expressed as
+    words, ``positions`` an optional int64[P] focus byte set.  Returns
+    (buf', length').  Op table (AFL havoc mix): 0 bit flip, 1-3
+    interesting 8/16/32, 4-9 arith +/- on 8/16/32, 10 xor byte, 11-12
+    delete block, 13 insert clone/fill block, 14 overwrite clone/fill
+    block — each expressed as
 
         out[i] = set_mask[i] ? set_val[i] : buf[src[i]] ^ xor_mask[i]
     """
@@ -86,6 +87,17 @@ def _havoc_one(buf, length, w):
     blk_span = torch.div(length, 2, rounding_mode="floor").clamp(min=2) - 1
     blk = 1 + w6 % blk_span.clamp(min=1)
     bit = w7 % (length * 8).clamp(min=1)
+    if positions is not None:
+        # Angora-style focus: anchor the primary edit position (and
+        # the bit-flip byte) on the frontier-dependency byte set
+        # instead of the whole buffer.  Clone sources (pos2) and block
+        # spans stay unrestricted: material may come from anywhere, it
+        # just lands on a frontier byte.
+        n_pos = positions.shape[0]
+        lim = maxlen - 1
+        pos = torch.minimum(positions[w1 % n_pos], lim)
+        bit = torch.minimum(positions[w7 % n_pos], lim) * 8 \
+            + (w7 >> 16) % 8
     delta = rint % ARITH_MAX + 1
     use_fill = (rint % 4) == 0
 
@@ -166,12 +178,13 @@ def _havoc_one(buf, length, w):
 
 
 def havoc_at(buf: torch.Tensor, length, words: torch.Tensor,
-             stack_pow2: int = 4):
+             stack_pow2: int = 4, positions=None):
     """AFL-style havoc for every lane: ``buf`` uint8[L] (one seed,
     broadcast) or uint8[B, L], ``length`` int or int[B], ``words``
     [B, (2**stack_pow2 + 1) * 8] uint32 bits (int32 or int64 tensor).
     Lane b applies ``1 << (1 + words[b, 0] % stack_pow2)`` stacked
-    edits.  Returns (uint8[B, L], int32[B])."""
+    edits.  ``positions`` (``havoc_focus_at``) anchors each edit on a
+    focus byte set.  Returns (uint8[B, L], int32[B])."""
     n_steps = 1 << stack_pow2
     b = words.shape[0]
     w = words.to(torch.int64) & M32
@@ -184,12 +197,26 @@ def havoc_at(buf: torch.Tensor, length, words: torch.Tensor,
         b, buf.shape[-1]).clone()
     ln = lanes(out, length, b)[1].clone()
     stack = 1 << (1 + w[:, 0] % stack_pow2)
+    if positions is not None:
+        positions = torch.as_tensor(positions, dtype=torch.int64,
+                                    device=dev)
     for i in range(n_steps):
-        nb, nln = _havoc_one(out, ln, w[:, (i + 1) * 8:(i + 2) * 8])
+        nb, nln = _havoc_one(out, ln, w[:, (i + 1) * 8:(i + 2) * 8],
+                             positions)
         active = i < stack
         out = torch.where(active[:, None], nb, out)
         ln = torch.where(active, nln, ln)
     return out.to(torch.uint8), ln.to(torch.int32)
+
+
+def havoc_focus_at(buf: torch.Tensor, length, words: torch.Tensor,
+                   positions, stack_pow2: int = 4):
+    """``havoc_at`` with edit positions drawn from ``positions``
+    (int[P], the frontier-dependency byte set from the static layer).
+    The words are drawn exactly as for ``havoc_at`` (one threefry bulk
+    draw per lane key); only the edit positions differ, so a campaign
+    without a mask keeps its exact unfocused candidate stream."""
+    return havoc_at(buf, length, words, stack_pow2, positions=positions)
 
 
 # --------------------------------------------------------------------
@@ -476,6 +503,23 @@ def zzuf_at(buf, length, keys: torch.Tensor, ratio: float = 0.004):
     mask = (hit.to(torch.int64) * weights).sum(-1)       # packbits, big
     mask = torch.where(_idx(L, b.device) < ln[:, None], mask, 0)
     return b ^ mask.to(torch.uint8), ln.to(torch.int32)
+
+
+def zzuf_focus_at(buf, length, keys: torch.Tensor, positions,
+                  ratio: float = 0.004):
+    """``zzuf_at`` restricted to the focus byte set, with the flip
+    ratio rescaled by buffer/mask size (in float32, as the JAX package
+    rescales it) so the EXPECTED flip count is preserved — a 2-byte
+    mask on a 64-byte buffer at the default ratio would otherwise
+    leave ~94% of candidates byte-identical to the seed."""
+    L = buf.shape[-1]
+    scaled = np.minimum(np.float32(ratio) * np.float32(L)
+                        / np.float32(positions.shape[0]), np.float32(1.0))
+    out, ln = zzuf_at(buf, length, keys, scaled)
+    positions = torch.as_tensor(positions, device=out.device)
+    allowed = (_idx(L, out.device)[0, :, None]
+               == positions[None, :]).any(dim=1)
+    return torch.where(allowed, out, buf.to(out.device)), ln
 
 
 def splice_at(buf_a, len_a, buf_b: torch.Tensor, len_b: torch.Tensor,

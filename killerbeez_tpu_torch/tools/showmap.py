@@ -19,6 +19,7 @@ from typing import List, Optional
 import numpy as np
 
 from ..analysis.cfg import build_cfg
+from ..analysis.lint import universe_stats
 from ..utils.fileio import read_file, write_buffer_to_file
 from ..utils.logging import INFO_MSG, setup_logging
 from .tracer import add_common_args, open_traced
@@ -36,17 +37,16 @@ def show_map(driver, instrumentation, input_bytes: bytes) -> List[str]:
 def static_summary(program, dynamic_slots) -> str:
     """One line of static-universe context for a dynamic trace: how
     much of the statically enumerable edge universe this input lit."""
-    slots = set(int(x) for x in np.asarray(program.edge_slot))
-    n_slots = len(slots)
-    hit = len(slots & set(int(d) for d in dynamic_slots))
-    pct = 100.0 * hit / n_slots if n_slots else 0.0
-    return (f"static universe: {int(program.n_blocks)} blocks, "
-            f"{int(program.n_edges)} edges over {n_slots} slots "
-            f"({len(program.modules)} module(s)); input covered "
-            f"{hit}/{n_slots} static slots ({pct:.1f}%); "
-            f"longest loop-free path "
-            f"{int(build_cfg(program).longest_acyclic_path)} of "
-            f"max_steps {int(program.max_steps)}")
+    s = universe_stats(program, build_cfg(program))
+    static = set(int(x) for x in np.asarray(program.edge_slot))
+    hit = len(static & set(int(d) for d in dynamic_slots))
+    pct = 100.0 * hit / s["n_slots"] if s["n_slots"] else 0.0
+    return (f"static universe: {s['n_blocks']} blocks, "
+            f"{s['n_edges']} edges over {s['n_slots']} slots "
+            f"({s['n_modules']} module(s)); input covered "
+            f"{hit}/{s['n_slots']} static slots ({pct:.1f}%); "
+            f"longest loop-free path {s['longest_acyclic_path']} of "
+            f"max_steps {s['max_steps']}")
 
 
 def main(argv: Optional[List[str]] = None) -> int:

@@ -87,10 +87,10 @@ def test_state_loads_across_packages(campaigns):
 
 
 @pytest.mark.parametrize("extra,flag", [
-    (["--vsa"], "--vsa"),
+    (["--auto-repair"], "--auto-repair"),
     (["--sync-manager", "m"], "--sync-manager"),
     (["--stateful"], "--stateful"), (["--hybrid", "test"], "--hybrid"),
-    (["--crack"], "--crack"), (["--learn"], "--learn"),
+    (["--gossip"], "--gossip"), (["--learn"], "--learn"),
 ])
 def test_unported_flag_exits_2(extra, flag, tmp_path, capsys):
     argv = _argv(tmp_path / "none", tmp_path / "o", "--device", "cpu",

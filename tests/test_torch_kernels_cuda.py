@@ -574,3 +574,103 @@ def test_host_batches_wait_only_for_their_copies(device_triage, cuda):
         stacks["cpu"].instrumentation.get_state()
     for d in stacks.values():
         d.instrumentation.cleanup()
+
+
+# -- the crack and search tier ----------------------------------------
+
+def test_distances_on_the_card_equal_the_cpu(cuda):
+    """``run_batch_distances`` (plain torch ops on the card) == the CPU:
+    the five VMResult fields, the float32 distances, the captures."""
+    from killerbeez_tpu_torch.models.vm import run_batch_distances
+    from killerbeez_tpu_torch.search.objective import edge_objectives
+    for name in ("magicsum_vm", "tlvstack_vm"):
+        prog = get_target(name)
+        specs = tuple(o.spec() for f, t in zip(prog.edge_from,
+                                               prog.edge_to)
+                      for o in edge_objectives(prog, (int(f), int(t))))[:8]
+        gen = torch.Generator().manual_seed(7)
+        x = torch.randint(0, 256, (2048, 48), generator=gen,
+                          dtype=torch.uint8)
+        y = torch.randint(0, 49, (2048,), generator=gen, dtype=torch.int32)
+        for capture in (False, True):
+            cpu = run_batch_distances(prog, x, y, specs, capture)
+            card = run_batch_distances(prog, x.cuda(), y.cuda(), specs,
+                                       capture)
+            _equal(cpu[0], card[0])
+            for a, b in zip(cpu[1:], card[1:]):
+                assert torch.equal(a, b.cpu())
+
+
+def test_focused_mutators_on_the_card_equal_the_cpu(cuda):
+    """Focused havoc, zzuf and afl's havoc tail: card == CPU, and no
+    wait for the card while the mask is installed."""
+    from killerbeez_tpu_torch.mutators import mutator_factory
+    seed = targets_cgc.tlvstack_vm_seed()
+    for name, opts in (("havoc", '{"seed": 3}'), ("zzuf", '{"seed": 3}'),
+                       ("afl", '{"seed": 3, "skip_deterministic": 1}')):
+        muts = {dev: mutator_factory(name, opts, seed, device=dev)
+                for dev in ("cuda", "cpu")}
+        for m in muts.values():
+            m.set_focus_mask([0, 3, 9, 17])
+        muts["cuda"].mutate_batch(64)
+        muts["cpu"].mutate_batch(64)
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            got = muts["cuda"].mutate_batch(4096)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        ref = muts["cpu"].mutate_batch(4096)
+        assert torch.equal(got[0].cpu(), ref[0])
+        assert torch.equal(got[1].cpu(), ref[1])
+
+
+def test_device_descent_on_the_card_equals_the_cpu(cuda):
+    """Stepped and in-scan descent on the card: the same elite front
+    and witnesses as each other and as the CPU."""
+    import numpy as np
+    from killerbeez_tpu_torch.search import DeviceDescent
+    prog = get_target("magicsum_vm")
+    runs = []
+    for dev, si, n in (("cuda", 1, 4), ("cuda", 4, 1), ("cpu", 4, 1)):
+        eng = DeviceDescent(prog, (2, 4), [bytes(6)], lanes=256,
+                            scan_iters=si, device=dev)
+        rows = [r for _ in range(n) for r in eng.dispatch()]
+        runs.append((eng.elite_front(), rows, eng.witnesses_total,
+                     eng.best_primary))
+    for other in runs[1:]:
+        for a, b in zip(runs[0][0], other[0]):
+            np.testing.assert_array_equal(a, b)
+        assert runs[0][1:] == other[1:]
+
+
+def test_focus_mask_runs_the_unfused_kernel(cuda):
+    """With a focus mask installed the ``cuda_fused`` engine runs the
+    focused candidates through ``kbz_vm_kernel`` over every lane; once
+    it clears, ``kbz_fuzz_kernel`` runs again."""
+    import json
+    from killerbeez_tpu_torch.drivers.factory import driver_factory
+    from killerbeez_tpu_torch.instrumentation.factory import (
+        instrumentation_factory,
+    )
+    from killerbeez_tpu_torch.mutators import mutator_factory
+    instr = instrumentation_factory(
+        "jit_harness", json.dumps({"target": "test",
+                                   "engine": "cuda_fused"}))
+    mut = mutator_factory("havoc", '{"seed": 11}', b"ABC@")
+    drv = driver_factory("file", None, instr, mut)
+    drv.test_batch(1024)
+    mut.set_focus_mask([0, 3])
+    before = dict(vk.LAUNCHES)
+    out = drv.test_batch(1024)
+    twin = mutator_factory("havoc", '{"seed": 11}', b"ABC@", device="cpu")
+    twin.iteration = 1024
+    twin.set_focus_mask([0, 3])
+    tb, _ = twin.mutate_batch(1024)
+    assert torch.equal(out.inputs.cpu(), tb)
+    assert vk.LAUNCHES["kbz_vm_kernel_all"] == \
+        before["kbz_vm_kernel_all"] + 1
+    assert vk.LAUNCHES["kbz_fuzz_kernel"] == before["kbz_fuzz_kernel"]
+    mut.set_focus_mask(None)
+    drv.test_batch(1024)
+    assert vk.LAUNCHES["kbz_fuzz_kernel"] == before["kbz_fuzz_kernel"] + 1

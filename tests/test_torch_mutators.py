@@ -4,8 +4,9 @@ batch by batch over (and past the stage boundaries of) its walk, a
 batch equals its candidates made one at a time, the totals, set_input
 (with and without keep_length) and the state strings agree, and each
 package loads the other's state; manager's parts through
-mutate_extended, the radamsa wrapper over a fake binary, and the
-refusals (grammar, focus masks, a card asked for without one)."""
+mutate_extended, the radamsa wrapper over a fake binary, focus masks
+(``set_focus_mask``), and the refusals (grammar, a card asked for
+without one)."""
 
 import json
 import sys
@@ -294,10 +295,32 @@ def _seed_for(name):
 
 @pytest.mark.parametrize("name,opts", ALL, ids=IDS + ["manager"])
 def test_focus_masks_are_refused(name, opts):
-    port = mutator_factory(name, json.dumps(opts) if opts else None,
-                           _seed_for(name), device="cpu")
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        port.set_focus_mask([0, 1])
+    """Focus masks are no longer refused: each mutator's
+    ``set_focus_mask`` has the JAX mutator's effect — sorted, deduped,
+    positions past the buffer dropped, an empty set clearing the mask,
+    ``pad_pow2`` cycling the set — and the next batch (focused for
+    havoc, zzuf and afl's havoc tail, unchanged for the walks) equals
+    the JAX mutator's."""
+    o = json.dumps(opts) if opts else None
+    seed = _seed_for(name)
+    ref = jax_factory(name, o, seed)
+    port = mutator_factory(name, o, seed, device="cpu")
+    for positions, pad in (([5, 1, 1, 300, -2, 3], False), ([], False),
+                           (None, False), ([0, 2, 4], True),
+                           ([7, 6, 0, 1, 99], False)):
+        ref.set_focus_mask(positions, pad_pow2=pad)
+        port.set_focus_mask(positions, pad_pow2=pad)
+        if ref.focus_positions is None:
+            assert port.focus_positions is None
+        else:
+            assert port.focus_positions.dtype == ref.focus_positions.dtype
+            np.testing.assert_array_equal(port.focus_positions,
+                                          ref.focus_positions)
+    n = min(64, ref.remaining())
+    rb, rl = _batch(ref, n, False)
+    pb, pl = _batch(port, n, True)
+    np.testing.assert_array_equal(rb, pb)
+    np.testing.assert_array_equal(rl, pl)
 
 
 @pytest.mark.parametrize("name,opts", ALL, ids=IDS + ["manager"])
