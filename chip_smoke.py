@@ -165,9 +165,29 @@ It builds the CUDA kernels from ``killerbeez_tpu_torch/csrc`` and:
      injection, ``kbz_fuzz_kernel`` and ``kbz_vm_kernel_all`` launches,
      each run's execs/s and the crack's solve and descent seconds
      beside the card's name and power limit;
+  12. (run before the record) the stateful session tier, which has no
+     kernel on its path (the session executor is plain torch on the
+     card, as the JAX package's is plain XLA): (a) the session executor
+     and both state triages card == CPU on 65536 havoc mutants of each
+     stateful target's framed seed (all eight ``SessionResult`` fields,
+     the rets and ``virgin_state``), its event-span ms per batch and its
+     host waits (counted by sync debug mode "warn"); (b) ``--stateful``
+     campaigns card == CPU through ``cli.main`` at ``PIPELINE_DEPTH =
+     1``, ``-b 1024`` on ``tcp_like``: host-driven at ``-fb 0`` and the
+     default ``-fb``, ``-G 4``, ``--mesh 1,1`` host-driven and at ``-G
+     4`` (md5 sets, ``-isd`` with ``virgin_state``, ``-msd``, picks,
+     counters, the ``state_sig`` sidecars; no kernel launched), then
+     merger, tracer + minimize and picker card == CPU; (c) per target,
+     ``--stateful -b 65536`` (32 batches, throughput novelty, seed 7),
+     the same bytes single-shot on ``cuda_fused``, and ``--stateful -G
+     16``, in turns: execs/s, states seen, state x edge pairs and
+     deep-state edges hit, with the JAX bench's gate (>= 1 deep-state
+     edge with ``--stateful``, none without) and no kernel launched by
+     the stateful runs;
   9. prints one ``{"kernels": [...]}`` line (launches: the first
      host-driven, the first ``-G 16``, the first mesh, the first edges,
-     the first rare-edge and the first crack flagship runs together;
+     the first rare-edge, the first crack flagship and the first
+     single-shot run of phase 12c together;
      the all-lanes ``kbz_vm_kernel`` row from the mesh's cuda-engine
      run, the unfiltered ``ipt`` run, the rare-edge run's signer, phase
      8c's afl, zzuf and honggfuzz runs and the first crack flagship
@@ -1963,6 +1983,251 @@ def crack_flagships(card, seeds):
     return first
 
 
+# -- the stateful session tier (phase 12) ---------------------------------
+
+#: phase 12c's full-width run length, in batches of B: the session
+#: executor is plain torch ops bound by the host's op issue (0.3 to
+#: 0.6 s per 65536-lane batch end to end), so the JAX bench's 48
+#: batches are cut to 32 to keep phase 12 near two minutes
+STATEFUL_BATCHES = 32
+STATEFUL_TARGETS = ("tcp_like", "session_auth")
+
+
+def stateful_seeds():
+    """Each stateful target's framed seed as a file (the JAX bench's
+    stateful lane's seed, ``framed_seed``)."""
+    from killerbeez_tpu_torch.models import targets_stateful as ts
+    out = {}
+    for name in STATEFUL_TARGETS:
+        out[name] = OUT / f"seq_{name}.bin"
+        out[name].write_bytes(ts.framed_seed(name))
+    return out
+
+
+def session_parity(card):
+    """12a: the session executor and both state triages, card == CPU, on
+    B havoc mutants of each target's framed seed; the executor's
+    event-span ms per batch and its host waits."""
+    import warnings
+    from killerbeez_tpu_torch.models import targets_stateful as ts
+    from killerbeez_tpu_torch.models.targets import get_target
+    from killerbeez_tpu_torch.mutators.randomized import HavocMutator
+    from killerbeez_tpu_torch.ops.vm_kernel import LAUNCHES
+    from killerbeez_tpu_torch.stateful import coverage as sc
+    from killerbeez_tpu_torch.stateful.session import run_session_batch
+    from killerbeez_tpu_torch.tools.timing import timed
+    for name in STATEFUL_TARGETS:
+        prog, spec = get_target(name), ts.get_stateful_spec(name)
+        mut = HavocMutator(json.dumps({"seed": 7}), ts.framed_seed(name),
+                           device="cpu")
+        bufs, lens = mut.mutate_batch(B)
+        before = dict(LAUNCHES)
+        got = run_session_batch(prog, bufs.cuda(), lens.cuda(), spec)
+        ref = run_session_batch(prog, bufs, lens, spec)
+        err = max_abs_err([t.cpu() for t in got], ref)
+        v0 = sc.fresh_virgin_state(spec.n_states, prog.n_edges)
+        for tri in (sc.state_triage, sc.state_triage_exact):
+            err = max(err, max_abs_err(
+                [t.cpu() for t in tri(v0.cuda(), got.se_counts)],
+                tri(v0, ref.se_counts)))
+        if err or LAUNCHES != before:
+            raise AssertionError(f"session executor ({name}): card != CPU "
+                                 f"(max_abs_err {err}) or a kernel "
+                                 "launched")
+        args = (prog, bufs.cuda(), lens.cuda(), spec)
+        t_exec = timed(lambda: run_session_batch(*args), 3)
+        t_tri = {tri.__name__: timed(lambda: tri(v0.cuda(), got.se_counts),
+                                     5)
+                 for tri in (sc.state_triage, sc.state_triage_exact)}
+        # host waits: every read of a card value the executor makes
+        # (lane retirement every 16 steps), counted by sync debug mode
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            with warnings.catch_warnings(record=True) as caught:
+                warnings.simplefilter("always")
+                run_session_batch(*args)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        waits = sum("synchroniz" in str(w.message) for w in caught)
+        status = got.status.cpu()
+        print(f"session executor ({name}, {B} havoc mutants of the framed "
+              f"seed): card == CPU on all eight SessionResult fields and "
+              f"both triages' rets and virgin_state (max_abs_err 0; "
+              f"{int((status == 2).sum())} crashes, "
+              f"{int((status == 3).sum())} hangs, "
+              f"{int(got.msgs.sum())} messages, "
+              f"{int(got.steps.sum())} VM steps); event span "
+              f"{t_exec:.3f} ms per batch with {waits} host waits; state "
+              f"triage {t_tri['state_triage']:.3f} ms, exact "
+              f"{t_tri['state_triage_exact']:.3f} ms [{card}]", flush=True)
+
+
+def stateful_cli_parity(seeds):
+    """12b: --stateful campaigns card == CPU at -b 1024 with
+    PIPELINE_DEPTH = 1 (host-driven at -fb 0 and the default -fb, -G 4,
+    --mesh 1,1 host-driven and at -G 4), none launching a kernel; then
+    merger, minimize and picker card == CPU."""
+    from killerbeez_tpu_torch.ops.vm_kernel import LAUNCHES
+    # the default -fb rotates after 8 batches, so that case runs 12
+    cases = (("fb0", ["-n", "4096", "-fb", "0"]),
+             ("default", ["-n", "12288"]),
+             ("g4", ["-n", "4096", "-G", "4"]),
+             ("mesh", ["-n", "4096", "-fb", "0", "--mesh", "1,1"]),
+             ("mesh_g4", ["-n", "4096", "-G", "4", "--mesh", "1,1"]))
+    isds = {}
+    for label, extra in cases:
+        got = {}
+        for dev in ("cuda", "cpu"):
+            out = OUT / f"stateful_{label}_{dev}"
+            before = dict(LAUNCHES)
+            got[dev] = inprocess(
+                out, "-b", "1024", "--stateful", "--device", dev,
+                "--corpus-dir", str(out / "corpus"), "-i",
+                json.dumps({"target": "tcp_like",
+                            "novelty": "throughput"}), *extra,
+                mopts={"seed": 7}, seed=seeds["tcp_like"])
+            if LAUNCHES != before:
+                raise AssertionError(f"--stateful ({label}) launched a "
+                                     "kernel")
+            got[dev]["sigs"] = sorted(
+                (p.name, json.loads(p.read_text())["state_sig"])
+                for p in (out / "corpus").glob("*.json")
+                if len(p.stem) == 32)
+            isds[label, dev] = Path(f"{out}.isd")
+        if got["cuda"] != got["cpu"]:
+            diff = [k for k in got["cuda"] if got["cuda"][k] != got["cpu"][k]]
+            raise AssertionError(f"--stateful ({label}): card != CPU in "
+                                 f"{diff}")
+        g = got["cuda"]
+        if not (g["findings"]["new_paths"] and g["sigs"]):
+            raise AssertionError(f"--stateful ({label}) found nothing")
+        vs = json.loads(g["isd"])
+        print(f"--stateful {' '.join(extra)} (tcp_like, -b 1024, "
+              f"PIPELINE_DEPTH 1): card == CPU "
+              f"({len(g['findings']['new_paths'])} new paths, "
+              f"{len(g['findings']['crashes'])} crashes, picks "
+              f"{g['picks']}, {len(g['sigs'])} state_sig sidecars, equal "
+              f"-isd with virgin_state (spec {vs['stateful']}), -msd and "
+              f"counters {g['counters']}; no kernel launched)", flush=True)
+    stateful_tool_parity(seeds, isds)
+
+
+def stateful_tool_parity(seeds, isds):
+    """merger (the -fb 0 and -G 4 runs' states), tracer + minimize (over
+    the -fb 0 run's new paths) and picker (the two seeds) on the card
+    and on the CPU: the same output files."""
+    from killerbeez_tpu_torch.tools import merger, minimize, picker, tracer
+    iopts = json.dumps({"target": "tcp_like", "stateful": 1})
+    inputs = sorted((OUT / "stateful_fb0_cpu" / "new_paths").iterdir())[:8]
+    files = {}
+    for dev in ("cuda", "cpu"):
+        d = OUT / f"stateful_tools_{dev}"
+        shutil.rmtree(d, ignore_errors=True)
+        d.mkdir(parents=True)
+        quiet = ["-l", '{"level": 1}', "--device", dev]
+        rc = merger.main(["jit_harness", str(isds["fb0", dev]),
+                          str(isds["g4", dev]), "-i", iopts,
+                          "-o", str(d / "merged.state"), *quiet])
+        edges = []
+        for i, path in enumerate(inputs):
+            edges.append(str(d / f"edges_{i:02d}.txt"))
+            rc |= tracer.main(["file", "jit_harness", "-sf", str(path),
+                               "-i", iopts, "-n", "2", "-o", edges[-1],
+                               *quiet])
+        rc |= minimize.main([*edges, "-o", str(d / "keep.txt"),
+                             "-l", '{"level": 1}'])
+        rc |= picker.main(["file", "jit_harness", str(seeds["tcp_like"]),
+                           str(inputs[0]), "-n", "2", "-i", iopts,
+                           "-o", str(d / "picker.json"), *quiet])
+        if rc:
+            raise AssertionError(f"a stateful tool failed on {dev}")
+        (d / "keep.txt").write_text((d / "keep.txt").read_text()
+                                    .replace(str(d), "DIR"))
+        files[dev] = {p.name: p.read_bytes() for p in sorted(d.iterdir())}
+    if files["cuda"] != files["cpu"]:
+        diff = [k for k in files["cuda"]
+                if files["cuda"][k] != files["cpu"].get(k)]
+        raise AssertionError(f"stateful tools: card != CPU in {diff}")
+    rep = json.loads(files["cuda"]["picker.json"])
+    print(f"merger, tracer + minimize ({len(inputs)} inputs, "
+          f"{files['cuda']['keep.txt'].count(b'DIR')} kept) and picker "
+          f"(states reached {rep['state']['states_reached']}, "
+          f"{len(rep['state']['pairs'])} state x edge pairs): card == CPU",
+          flush=True)
+
+
+def deep_state_hits(name, isd: Path):
+    """(deep-state edges hit, touched state x edge pairs, states seen)
+    of a run's -isd state: deep edges read from their collision-free
+    AFL slots, as the JAX bench's stateful lane reads them."""
+    import numpy as np
+    from killerbeez_tpu_torch.models import targets_stateful as ts
+    from killerbeez_tpu_torch.models.targets import get_target
+    from killerbeez_tpu_torch.stateful.coverage import state_coverage_stats
+    from killerbeez_tpu_torch.utils.serialization import decode_array
+    prog = get_target(name)
+    deep = set(ts.deep_state_edges(prog))
+    slots = np.asarray(prog.edge_slot)
+    shallow = {int(slots[e]) for e in range(len(slots)) if e not in deep}
+    deep_slots = sorted({int(slots[e]) for e in deep} - shallow)
+    state = json.loads(isd.read_text())
+    vb = decode_array(state["virgin_bits"])
+    hit = sum(1 for s in deep_slots if vb[s] != 0xFF)
+    if "virgin_state" not in state:
+        return hit, None, None
+    return (hit,) + state_coverage_stats(
+        decode_array(state["virgin_state"]),
+        ts.get_stateful_spec(name).n_states)
+
+
+def stateful_flagships(card, seeds):
+    """12c: per target, the sequence campaign (--stateful, -b 65536,
+    STATEFUL_BATCHES, throughput novelty, seed 7 from the framed seed),
+    the same bytes single-shot on engine cuda_fused, and --stateful -G
+    16, in turns; the JAX bench's gate: >= 1 deep-state edge with --stateful,
+    none without.  Returns the first single-shot run's launches."""
+    from killerbeez_tpu_torch.ops.vm_kernel import LAUNCHES
+    first = None
+    rows = []
+    for name in STATEFUL_TARGETS:
+        iopts = {"target": name, "novelty": "throughput"}
+        for mode, extra in (("seq", ["--stateful"]),
+                            ("single", []),
+                            ("seq_g16", ["--stateful", "-G", "16"])):
+            run = f"stateful_{name}_{mode}"
+            isd = OUT / f"{run}.isd"
+            engine = {} if mode != "single" else {"engine": "cuda_fused"}
+            before = dict(LAUNCHES)
+            launches, rate, _ = flagship(
+                run, *extra, "-isd", str(isd), batches=STATEFUL_BATCHES,
+                iopts={**iopts, **engine}, mopts={"seed": 7},
+                need=() if mode != "single" else ("kbz_fuzz_kernel",),
+                seed=seeds[name])
+            hit, pairs, states = deep_state_hits(name, isd)
+            if mode == "single":
+                first = first or launches
+                if hit:
+                    raise AssertionError(f"{name}: the single-shot run hit "
+                                         f"{hit} deep-state edges — the "
+                                         "unreachability proof is broken")
+            else:
+                if any(launches.values()) or LAUNCHES != before:
+                    raise AssertionError(f"{run} launched a kernel: "
+                                         f"{launches}")
+                if hit < 1:
+                    raise AssertionError(f"{run} cracked no deep-state "
+                                         "edge")
+            rows.append(f"{name} {mode}: {rate:.0f} execs/s, deep-state "
+                        f"edges hit {hit}"
+                        + ("" if pairs is None else
+                           f", states seen {states}, state x edge pairs "
+                           f"{pairs}"))
+    print(f"stateful flagships on {card} ({STATEFUL_BATCHES} batches of "
+          f"{B}, in turns per target: --stateful, single-shot cuda_fused, "
+          f"--stateful -G 16): " + "; ".join(rows), flush=True)
+    return first
+
+
 class Phases:
     """Prints each phase's wall time as the next one starts."""
 
@@ -2370,6 +2635,15 @@ def main() -> int:
     phases.start("11c (crack flagship)")
     crack_launches = crack_flagships(card, crack_files)
 
+    # -- phase 12: the stateful session tier (no kernel on its path) ---
+    phases.start("12a (session executor card == CPU)")
+    seq_seeds = stateful_seeds()
+    session_parity(card)
+    phases.start("12b (stateful CLI and tools card == CPU)")
+    stateful_cli_parity(seq_seeds)
+    phases.start("12c (stateful flagships)")
+    single_launches = stateful_flagships(card, seq_seeds)
+
     # -- phase 9: the record -------------------------------------------
     phases.start("9 (record)")
     print(f"main-path launches: host-driven {launches}, -G 16 "
@@ -2377,13 +2651,14 @@ def main() -> int:
           f"16 {mesh_launches[1]}, --mesh 1,1 engine cuda "
           f"{vm_all_launches}, ipt {ipt_launches}, edges {edges_launches}, "
           f"rare-edge {rare_launches}, mutators {mut_launches}, crack "
-          f"{crack_launches}; over this "
+          f"{crack_launches}, stateful: none (phase 12's single-shot lane "
+          f"{single_launches}); over this "
           f"whole run: {vk.LAUNCHES}, of which in its CLI runs "
           f"{CLI_LAUNCHES}",
           flush=True)
     launches = {k: launches[k] + gen_launches[k] + mesh_launches[0][k]
                 + mesh_launches[1][k] + edges_launches[k] + rare_launches[k]
-                + crack_launches[k]
+                + crack_launches[k] + single_launches[k]
                 for k in launches}
     all_lanes = (vm_all_launches["kbz_vm_kernel_all"]
                  + ipt_launches["kbz_vm_kernel_all"]

@@ -13,7 +13,8 @@ fall back to the CPU.
 
 Package map (the flagship fuzz loop, the CLI's default campaign, its
 device-resident generation loop, the mesh campaign, the trace surface,
-every mutator but grammar and the host-execution tier):
+every mutator but grammar, the host-execution tier, the crack and
+search tier and the stateful session tier):
   utils/            logging, JSON option parsing, state serialization
   models/           the KBVM bytecode VM (plain torch engines, with the
                     edge stream and the single-lane reference) + targets
@@ -32,12 +33,16 @@ every mutator but grammar and the host-execution tier):
   corpus/           the corpus store and the seed schedulers
   analysis/         the block CFG, the static edge prior and the
                     dataflow analysis behind the auto-dictionary
-  stateful/         the sequence framing of the manager's framed mode
+  stateful/         the session tier: sequence framing, the session
+                    executor (plain torch on the card), state x edge
+                    triage, the protocol analysis and per-message
+                    dictionaries
   telemetry/        metrics registry, stats files, event log, span ring
   resilience/       chaos points, checkpoints, the dispatch watchdog
   parallel/         the mesh campaign (--mesh dp,mp)
   fuzzer/           the batched main loop (corpus feedback) + CLI
-  tools/            tracer, showmap, and diagnostics run on the card
+  tools/            tracer, showmap, merger, minimize, picker, kb-solve,
+                    kb-lint, kb-descend, and diagnostics run on the card
 """
 
 __version__ = "0.1.0"

@@ -124,11 +124,33 @@ def lint_program(program,
 
     session_live = None
     if stateful is not None:
-        # the session tier (stateful/protocol.py) is not in this
-        # package yet: its checks are refused, never skipped
-        raise NotImplementedError(
-            "lint_program(stateful=...) needs the session tier, which "
-            "is not ported yet")
+        from ..stateful import protocol as _proto
+        reached, live_by_state = _proto.reachable_states(program,
+                                                         stateful)
+        session_live = set()
+        for blocks in live_by_state.values():
+            session_live |= blocks
+        for s in _proto.unreachable_states(program, stateful,
+                                           _reached=reached):
+            out.append(Finding(
+                SEV_WARNING, "state-unreachable",
+                f"protocol state {s} is guarded on or assigned but "
+                f"no session reaches it from the initial state in "
+                f"the static CFG — dead protocol surface (reachable "
+                f"states: {sorted(reached)})",
+                {"state": int(s), "reachable": sorted(reached)}))
+        for pc, v in _proto.state_assignments(program,
+                                              stateful.state_reg):
+            if v >= stateful.n_states:
+                out.append(Finding(
+                    SEV_WARNING, "state-clip",
+                    f"state assignment r{stateful.state_reg} = {v} "
+                    f"at pc {pc} is at/beyond n_states="
+                    f"{stateful.n_states}: the session tier clips "
+                    f"it into bucket {stateful.n_states - 1}, "
+                    f"aliasing distinct states in the state x edge "
+                    f"map", {"pc": int(pc), "value": int(v),
+                             "n_states": int(stateful.n_states)}))
 
     # -- empty modules ------------------------------------------------
     for name, lo, hi in program.modules:

@@ -70,7 +70,6 @@ UNPORTED = (
     (("--hybrid-queue",), None), (("--hybrid-workers",), None),
     (("--auto-repair",), "?"),
     (("--learn",), "?"), (("--learn-interval",), None),
-    (("--stateful",), "?"),
 )
 _NOT_GIVEN = object()
 
@@ -259,6 +258,21 @@ def build_parser() -> argparse.ArgumentParser:
                         "Stands down (warning) when the mutator cannot "
                         "run it; with -fb 0 the candidate stream is "
                         "bit-identical to the host-driven loop's")
+    p.add_argument("--stateful", type=int, nargs="?", const=0,
+                   default=None, metavar="M",
+                   help="stateful protocol sessions (jit_harness): "
+                        "inputs are framed message sequences "
+                        "(stateful/framing.py; frame seeds with python "
+                        "-m killerbeez_tpu_torch.stateful.framing) "
+                        "executed message-by-message from carried "
+                        "machine state, with a state x edge virgin map "
+                        "folded alongside the classic novelty maps.  The "
+                        "optional value overrides the sequence capacity "
+                        "M (default: the target's registered "
+                        "StatefulSpec).  Runs the plain torch session "
+                        "executor (the kernels stand down); the fused "
+                        "superbatch stands down, -G and --mesh run the "
+                        "stateful generation loop and mesh step")
     p.add_argument("--mesh",
                    help='campaign over a "dp,mp" device mesh (e.g. '
                         "--mesh 4,2): candidates shard over dp, coverage "
@@ -361,6 +375,25 @@ def main(argv: Optional[List[str]] = None) -> int:
                   file=sys.stderr)
             return 2
 
+        if args.stateful is not None:
+            # inject the session-tier options into the instrumentation
+            # config
+            if args.instrumentation != "jit_harness":
+                print("error: --stateful needs the jit_harness "
+                      "instrumentation (the session executor runs the "
+                      "KBVM)", file=sys.stderr)
+                return 2
+            try:
+                iopts = json.loads(args.instrumentation_options) \
+                    if args.instrumentation_options else {}
+            except ValueError:
+                iopts = None     # the factory reports the parse error
+            if isinstance(iopts, dict):
+                iopts.setdefault("stateful", 1)
+                if args.stateful > 0:
+                    iopts["msgs"] = args.stateful
+                args.instrumentation_options = json.dumps(iopts)
+
         instrumentation = instrumentation_factory(
             args.instrumentation, args.instrumentation_options,
             device=args.device)
@@ -444,6 +477,14 @@ def main(argv: Optional[List[str]] = None) -> int:
                 print("error: --crack needs a KBVM device target "
                       "(jit_harness, single-device) — the solver works "
                       "on the program text", file=sys.stderr)
+                return 2
+            if getattr(instrumentation, "stateful_spec", None) \
+                    is not None:
+                print("error: --crack models single-shot execution "
+                      "(path conditions over ONE input) — it cannot "
+                      "drive the stateful session tier; run it "
+                      "without --stateful, or fuzz sequences with "
+                      "-G/havoc/multipart", file=sys.stderr)
                 return 2
             from .crack import BranchCracker
             fuzzer.cracker = BranchCracker(

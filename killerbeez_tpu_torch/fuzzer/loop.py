@@ -45,6 +45,12 @@ edges, inject the solved inputs and install a focus mask, which stands
 the fused path (and ``-G``) down until it clears; its solver cache
 rides the campaign checkpoint.
 
+With a stateful instrumentation (CLI ``--stateful``) every admission
+records the entry's state x edge signature in its sidecar (the
+admission candidates of a batch or dispatch signed in one session
+batch), and the state-coverage gauges and ``state_cov`` events follow
+the live state x edge map.
+
 Not ported yet: the repair stage, sync, and the learn and hybrid
 tiers.
 """
@@ -247,6 +253,15 @@ class Fuzzer:
         #: maps it onto PIPELINE_DEPTH trace lanes (seq % depth)
         self._batch_seq = 0
         self._last_persist = 0.0
+        #: stateful session tier: last state-gauge refresh and the
+        #: high-water of touched state x edge pairs (one state_cov
+        #: event per increase)
+        self._state_gauge_t = 0.0
+        self._state_pairs_seen = 0
+        #: state x edge signatures of the admission candidates of the
+        #: batch or dispatch being triaged, made in one session batch
+        #: (_presign) and consumed by _admit_arm
+        self._state_sigs: Dict[bytes, list] = {}
         #: dispatch watchdog (resilience/watchdog.py): a deadline on
         #: every blocking device wait; a stall dumps in-flight lane
         #: state and exits for a supervisor-mediated restart
@@ -506,6 +521,18 @@ class Fuzzer:
                 arm.sig = self._signer(buf)
             except Exception as e:
                 WARNING_MSG("corpus signer failed: %s", e)
+        # stateful session tier: the entry's state x edge signature for
+        # its sidecar (pure side executions through the session
+        # executor, made for the whole batch by _presign)
+        ssig_fn = getattr(getattr(self.driver, "instrumentation", None),
+                          "state_signature", None)
+        if buf in self._state_sigs:
+            arm.state_sig = self._state_sigs[buf]
+        elif ssig_fn is not None:
+            try:
+                arm.state_sig = ssig_fn(buf)
+            except Exception as e:
+                WARNING_MSG("state signature failed: %s", e)
         if self.store is not None and not os.path.exists(
                 self.store.entry_path(digest)):
             arm.seq = self.store.next_seq()
@@ -520,6 +547,29 @@ class Fuzzer:
                 self.scheduler.credit_find(credit)
             self.telemetry.registry.gauge("corpus_arms",
                                           len(self.scheduler.arms))
+
+    def _presign(self, rows) -> None:
+        """Stateful session tier: sign the edge-novel lanes a batch or
+        dispatch may admit (``rows``, an iterable of their bytes, read
+        only when the tier is on) with one run of the session executor:
+        on the card a side execution costs a whole message loop of small
+        ops, so one per admission would dominate a campaign's early
+        batches.  Lanes are independent, so each signature is the one
+        ``state_signature`` gives that input alone."""
+        self._state_sigs = {}
+        instr = getattr(self.driver, "instrumentation", None)
+        if getattr(instr, "stateful_spec", None) is None or not (
+                self.feedback or self.store is not None):
+            return
+        bufs = list(rows)
+        if not bufs:
+            return
+        try:
+            sigs = instr.state_signatures(bufs)
+        except Exception as e:
+            WARNING_MSG("state signature failed: %s", e)
+            return
+        self._state_sigs = dict(zip(bufs, sigs))
 
     def _triage_lane(self, status: int, new_path: int, buf: bytes,
                      unique_crash: bool = False,
@@ -654,6 +704,7 @@ class Fuzzer:
             if self.watchdog is not None:
                 self.watchdog.stop()
             self._profile_stop()
+            self._update_state_gauges(force=True)
             self.telemetry.registry.run_ended()
             self.telemetry.flush()
             # the span ring exports on every run end — interrupts
@@ -740,6 +791,10 @@ class Fuzzer:
         if rows is None:
             inputs = _host(out.inputs)
             lengths = _host(out.lengths)
+        novel = (i if rows is None else rows.get(int(i))
+                 for i in interesting if new_paths[i] == 2)
+        self._presign(inputs[r, :int(lengths[r])].tobytes()
+                      for r in novel if r is not None)
         for i in interesting:
             r = i
             if rows is not None:
@@ -897,6 +952,7 @@ class Fuzzer:
         reg = self.telemetry.registry
         reg.rate("execs", n)
         reg.gauge("pipeline_depth", len(pending))
+        self._update_state_gauges()
         self.telemetry.maybe_flush()
         self._persist_campaign()
 
@@ -1107,6 +1163,37 @@ class Fuzzer:
             self.telemetry.maybe_flush()
             self._persist_campaign()
 
+    def _update_state_gauges(self, force: bool = False) -> None:
+        """Stateful session tier: refresh the state-coverage gauges
+        (state_cov_pairs / state_cov_states) from the live virgin map
+        and emit one state_cov event per high-water increase.  Gated on
+        the persist interval — the read waits for the card, so it must
+        never ride the per-batch hot path.  A no-op when the tier is
+        off."""
+        instr = getattr(self.driver, "instrumentation", None)
+        fn = getattr(instr, "state_coverage_stats", None)
+        if fn is None:
+            return
+        t = time.time()
+        if not force and t - self._state_gauge_t < self.PERSIST_INTERVAL:
+            return
+        self._state_gauge_t = t
+        try:
+            st = fn()
+        except Exception as e:    # observability must never stop it
+            WARNING_MSG("state coverage stats failed: %s", e)
+            return
+        if st is None:
+            return                # tier off on this instrumentation
+        pairs, states = st
+        reg = self.telemetry.registry
+        reg.gauge("state_cov_pairs", pairs)
+        reg.gauge("state_cov_states", states)
+        if pairs > self._state_pairs_seen:
+            self._state_pairs_seen = pairs
+            self.telemetry.event("state_cov", pairs=int(pairs),
+                                 states=int(states))
+
     # -- opt-in device profiling (--profile-device) ---------------------
 
     def _profile_start(self) -> None:
@@ -1215,6 +1302,16 @@ class Fuzzer:
         # replay below owns admission and ring lanes must not)
         admit_ring = not self._gen_reseed
         self._credit_arm = None
+        if replay_adm:
+            def candidates():
+                for v, (_s, new_paths, _c, _h) in zip(views, verdicts):
+                    for j, a in np.argwhere(np.asarray(v.adm_valid) != 0):
+                        yield v.adm_bufs[j, a, :int(v.adm_len[j, a])
+                                         ].tobytes()
+                    if admit_ring:
+                        for e in np.flatnonzero(new_paths == 2):
+                            yield v.fr_bufs[e, :int(v.fr_len[e])].tobytes()
+            self._presign(candidates())
 
         def replay_lane(d, ei):
             v = views[d]
@@ -1338,6 +1435,7 @@ class Fuzzer:
                     reg.rate("execs", g_eff * n_real)
                     reg.gauge("generations_per_dispatch", g_eff)
                     reg.gauge("pipeline_depth", len(pending))
+                    self._update_state_gauges()
                     self.telemetry.maybe_flush()
                     self._persist_campaign()
             finally:

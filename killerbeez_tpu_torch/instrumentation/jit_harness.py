@@ -17,6 +17,13 @@ Engines (the reference's xla / pallas / pallas_fused):
 the device (ops/generations.py: the ``-G`` loop), with a seed-slot
 ring that lives on the harness's device.
 
+``{"stateful": 1}`` runs the session tier (stateful/): inputs are
+framed message sequences executed message by message from carried
+machine state by the plain torch session executor on the harness's
+device (the card included; any engine stands down to it, as the JAX
+package stands its Pallas engines down to xla), with a state x edge
+virgin map triaged beside the classic three.
+
 ``{"edges": 1}`` keeps lane 0's static-edge counts of each batch (a
 host copy started without a wait) for ``get_edges``, ``last_trace``,
 ``get_edge_pairs`` and the module API — the tracer, showmap and the
@@ -129,6 +136,27 @@ def _judge(res, u_slots, seg_id, vb, vc, vh, exact):
             res.counts)
 
 
+def _session_step(instrs, edge_table, u_slots, seg_id, inputs, lengths,
+                  vb, vc, vh, vs, mem_size, max_steps, n_edges, exact,
+                  m_max, n_states, state_reg):
+    """The stateful twin of ``_fused_step``: framed-sequence batch ->
+    session execution (stateful/session.py) -> classic static-edge
+    triage PLUS state x edge triage.  The reported per-lane novelty is
+    ``max(classic, state)`` — a lane novel only in the state dimension
+    is a finding too — while each virgin map updates from its own
+    dimension alone."""
+    from ..stateful.coverage import state_triage, state_triage_exact
+    from ..stateful.session import _run_session_impl
+    res = _run_session_impl(instrs, edge_table, inputs, lengths, mem_size,
+                            max_steps, n_edges, m_max, n_states, state_reg)
+    (statuses, new_paths, uc, uh, exit_codes, vb2, vc2, vh2,
+     counts) = _judge(res, u_slots, seg_id, vb, vc, vh, exact)
+    s_rets, vs2 = (state_triage_exact if exact else state_triage)(
+        vs, res.se_counts)
+    return (statuses, torch.maximum(new_paths, s_rets), uc, uh,
+            exit_codes, vb2, vc2, vh2, vs2, counts, res.se_counts)
+
+
 def _fused_step(instrs, edge_table, u_slots, seg_id, inputs, lengths,
                 vb, vc, vh, mem_size, max_steps, n_edges, exact):
     """mutated batch -> VM exec -> static-edge triage.  The VM runs
@@ -202,8 +230,7 @@ def _fused_fuzz_multi(instrs, edge_table, u_slots, seg_id, seed, base_key,
 
 # options of the reference whose machinery this package has not
 # ported yet: passing one (other than at its default) is an error
-_UNPORTED = ("stateful", "msgs", "n_states", "state_reg",
-             "learn", "grammar", "grammar_stage")
+_UNPORTED = ("learn", "grammar", "grammar_stage")
 
 ENGINES = ("torch", "cuda", "cuda_fused")
 
@@ -254,6 +281,19 @@ class JitHarnessInstrumentation(Instrumentation):
                           "generation with it off; a value that does not "
                           "divide the dispatch's G is lowered to one "
                           "that does)",
+        "stateful": "1 = session tier: inputs are framed message "
+                    "sequences executed message-by-message from "
+                    "carried machine state, with state x edge "
+                    "novelty folded alongside the classic map (the "
+                    "plain torch session executor; any engine stands "
+                    "down to it)",
+        "msgs": "stateful: max messages per sequence (0 = the "
+                "target's registered StatefulSpec, else 4)",
+        "n_states": "stateful: abstract-state buckets the state "
+                    "register clips into (0 = registered spec, "
+                    "else 16)",
+        "state_reg": "stateful: the protocol-state register "
+                     "(-1 = registered spec, else r7)",
         **{k: "not ported yet" for k in _UNPORTED},
     }
     DEFAULTS = {"novelty": "exact", "edges": 0, "phase1_steps": -1,
@@ -276,12 +316,33 @@ class JitHarnessInstrumentation(Instrumentation):
         if self.options["novelty"] not in ("exact", "throughput"):
             raise ValueError('novelty must be "exact" or "throughput"')
         on_card = self.device.type == "cuda"
-        self.engine = self.options.get("engine",
-                                       "cuda" if on_card else "torch")
+        asked = self.options.get("engine")
+        self.engine = asked or ("cuda" if on_card else "torch")
         if self.engine not in ENGINES:
             raise ValueError('engine must be "torch", "cuda" or '
                              '"cuda_fused"')
-        if on_card and self.engine == "torch":
+        # -- stateful session tier (stateful/) ------------------------
+        # resolved spec: explicit options win, then the target's
+        # registered StatefulSpec, then the package defaults
+        self.stateful_spec = None
+        if self.options["stateful"]:
+            from ..models.targets_stateful import get_stateful_spec
+            from ..stateful import StatefulSpec
+            reg_spec = get_stateful_spec(prog.name) or StatefulSpec()
+            self.stateful_spec = StatefulSpec(
+                m_max=(int(self.options["msgs"]) or reg_spec.m_max),
+                n_states=(int(self.options["n_states"])
+                          or reg_spec.n_states),
+                state_reg=(int(self.options["state_reg"])
+                           if int(self.options["state_reg"]) >= 0
+                           else reg_spec.state_reg))
+            if asked not in (None, "torch"):
+                WARNING_MSG(
+                    "jit_harness: stateful sessions run the plain torch "
+                    "session executor — %r stands down (the CUDA kernels "
+                    "execute single-shot inputs only)", asked)
+            self.engine = "torch"
+        elif on_card and self.engine == "torch":
             raise ValueError('engine "torch" runs on the CPU only '
                              '(device "cpu"); on the card use "cuda" '
                              'or "cuda_fused"')
@@ -315,6 +376,13 @@ class JitHarnessInstrumentation(Instrumentation):
                                       device=dev)
         self.virgin_crash = self.virgin_bits.clone()
         self.virgin_tmout = self.virgin_bits.clone()
+        # the state x edge virgin map (stateful tier only; edge-index
+        # space, n_states x (E+1) bytes — see stateful/coverage.py)
+        self.virgin_state = None
+        if self.stateful_spec is not None:
+            from ..stateful.coverage import fresh_virgin_state
+            self.virgin_state = fresh_virgin_state(
+                self.stateful_spec.n_states, prog.n_edges, dev)
         self.total_execs = 0
         self._lane_offsets: Dict[Tuple[int, int], torch.Tensor] = {}
         # --generations: the device seed-slot ring (ops/generations
@@ -329,8 +397,10 @@ class JitHarnessInstrumentation(Instrumentation):
         self._last_unique_crash = False
         self._last_unique_hang = False
         # {"edges": 1}: lane 0's counts row of the last batch, a host
-        # copy started without blocking and read by get_edges
+        # copy started without blocking and read by get_edges (and its
+        # state x edge row under stateful, read by get_state_pairs)
         self._last_counts: Optional[HostCopy] = None
+        self._last_se: Optional[HostCopy] = None
 
     def _args(self):
         p = self.program
@@ -373,6 +443,8 @@ class JitHarnessInstrumentation(Instrumentation):
                                  device=self.device)
         lengths = torch.as_tensor(lengths, dtype=torch.int32,
                                   device=self.device)
+        if self.stateful_spec is not None:
+            return self._run_batch_stateful(inputs, lengths)
         (statuses, new_paths, uc, uh, exit_codes, vb, vc, vh,
          counts) = _fused_step(
             self._instrs, self._edge_table, self._u_slots, self._seg_id,
@@ -385,6 +457,26 @@ class JitHarnessInstrumentation(Instrumentation):
                            unique_crashes=uc, unique_hangs=uh,
                            exit_codes=exit_codes)
 
+    def _run_batch_stateful(self, inputs, lengths) -> BatchResult:
+        """Session-tier batch execution: framed sequences through the
+        session executor, dual-map triage (see _session_step)."""
+        spec = self.stateful_spec
+        (statuses, new_paths, uc, uh, exit_codes, vb, vc, vh, vs,
+         counts, se) = _session_step(
+            self._instrs, self._edge_table, self._u_slots, self._seg_id,
+            inputs, lengths, self.virgin_bits, self.virgin_crash,
+            self.virgin_tmout, self.virgin_state, *self._args(),
+            spec.m_max, spec.n_states, spec.state_reg)
+        self.virgin_bits, self.virgin_crash, self.virgin_tmout = vb, vc, vh
+        self.virgin_state = vs
+        self.total_execs += int(inputs.shape[0])
+        self._keep_counts(counts)
+        if self.options.get("edges"):
+            self._last_se = HostCopy(se[:1])
+        return BatchResult(statuses=statuses, new_paths=new_paths,
+                           unique_crashes=uc, unique_hangs=uh,
+                           exit_codes=exit_codes)
+
     # -- fused mutate+execute (the flagship product path) ---------------
 
     def wants_fused(self, mutator) -> bool:
@@ -392,7 +484,10 @@ class JitHarnessInstrumentation(Instrumentation):
         mutate+execute path for ``mutator``: any CUDA engine fuses
         with a fusable mutator (havoc) — the fused kernel consumes the
         mutator's OWN per-lane keys, so candidates and verdicts are
-        bit-identical to the mutate-then-execute pipeline."""
+        bit-identical to the mutate-then-execute pipeline.  Sessions
+        never fuse: the fused kernel runs single-shot inputs only."""
+        if self.stateful_spec is not None:
+            return False
         fusable = getattr(mutator, "fused_spec", None) is not None
         if self.engine == "cuda_fused" and not fusable \
                 and not self._fuse_warned:
@@ -538,7 +633,8 @@ class JitHarnessInstrumentation(Instrumentation):
         adm_cap, cap = gen_ring_caps(
             self.options["gen_admits"], self.options["gen_findings_cap"],
             b, self._gen_ring_key[1])
-        (vb, vc, vh), ring, rep = run_generations(
+        spec = self.stateful_spec
+        (vb, vc, vh, vs), ring, rep = run_generations(
             self._instrs, self._edge_table, self._u_slots, self._seg_id,
             self._gen_ring, base_key.to(self.device),
             self._its(its, b), n, self._gen_count, salt,
@@ -548,8 +644,12 @@ class JitHarnessInstrumentation(Instrumentation):
             n_edges=self.program.n_edges, exact=self.exact,
             stack_pow2=int(stack_pow2), g=int(g),
             phase1_steps=self.phase1_steps, reseed=bool(reseed),
-            adm_cap=adm_cap, findings_cap=cap)
+            adm_cap=adm_cap, findings_cap=cap,
+            stateful=None if spec is None else (
+                spec.m_max, spec.n_states, spec.state_reg),
+            vs=self.virgin_state)
         self.virgin_bits, self.virgin_crash, self.virgin_tmout = vb, vc, vh
+        self.virgin_state = vs
         self._gen_ring = ring
         out = GenerationOutcome(*rep, gen0=self._gen_count, g=int(g),
                                 n_real=n, cap=cap)
@@ -661,7 +761,63 @@ class JitHarnessInstrumentation(Instrumentation):
                                   list(self.program.module_names),
                                   module, MAP_SIZE)
 
+    # -- stateful session surface (showmap / corpus / telemetry) --------
+
+    def state_signature(self, buf: bytes):
+        """The state x edge signature of ONE framed input as sorted
+        ``[state, slot]`` pairs — PURE (no virgin-map fold; a side
+        execution through the session executor).  The corpus sidecar
+        and picker wire format.  None when the tier is off."""
+        sigs = self.state_signatures([buf])
+        return None if sigs is None else sigs[0]
+
+    def state_signatures(self, bufs: List[bytes]):
+        """``state_signature`` of several framed inputs from ONE session
+        batch (lanes are independent, so each row's pairs are the
+        single input's): the loop signs a batch's admissions with one
+        run of the executor instead of one per admission.  None when the
+        tier is off."""
+        if self.stateful_spec is None:
+            return None
+        from ..mutators.base import pack_byte_rows
+        from ..stateful.session import run_session_batch, state_edge_pairs
+        arr, lens = pack_byte_rows(bufs)
+        res = run_session_batch(
+            self.program, torch.as_tensor(arr, device=self.device),
+            torch.as_tensor(lens, device=self.device), self.stateful_spec)
+        return [state_edge_pairs(row, self.program.edge_slot)
+                for row in res.se_counts.cpu().numpy()]
+
+    def state_coverage_stats(self):
+        """(touched state x edge pairs, distinct states seen) from the
+        live virgin map — the telemetry gauges.  None when the tier is
+        off.  Waits for the card (a tiny copy)."""
+        if self.stateful_spec is None:
+            return None
+        from ..stateful.coverage import state_coverage_stats
+        return state_coverage_stats(self.virgin_state.cpu().numpy(),
+                                    self.stateful_spec.n_states)
+
+    def get_state_pairs(self):
+        """Last exec's (state, slot, count) records (requires
+        {"edges": 1}, like get_edges) — the showmap "state" section
+        source."""
+        if self._last_se is None:
+            return None
+        se = np.asarray(self._last_se)[0, :, :-1]
+        slots = np.asarray(self.program.edge_slot)
+        agg: dict = {}
+        for s, e in zip(*np.nonzero(se)):
+            key = (int(s), int(slots[e]))
+            agg[key] = agg.get(key, 0) + int(se[s, e])
+        return [(s, slot, c) for (s, slot), c in sorted(agg.items())]
+
     # -- state / merge --------------------------------------------------
+
+    def _spec_dict(self) -> Dict[str, int]:
+        spec = self.stateful_spec
+        return {"m_max": spec.m_max, "n_states": spec.n_states,
+                "state_reg": spec.state_reg}
 
     def get_state(self) -> str:
         d = {
@@ -672,6 +828,9 @@ class JitHarnessInstrumentation(Instrumentation):
             "virgin_crash": encode_array(self.virgin_crash.cpu().numpy()),
             "virgin_tmout": encode_array(self.virgin_tmout.cpu().numpy()),
         }
+        if self.stateful_spec is not None:
+            d["virgin_state"] = encode_array(self.virgin_state.cpu().numpy())
+            d["stateful"] = self._spec_dict()
         if len(self.program.modules) > 1:
             d["modules"] = list(self.program.module_names)
         return json.dumps(d)
@@ -688,12 +847,40 @@ class JitHarnessInstrumentation(Instrumentation):
             raise ValueError(
                 f"state modules {mods} != {self.program.module_names}")
 
+    def _check_state_state_layout(self, d: Dict[str, Any], arr) -> None:
+        """virgin_state interop requires the same (n_states, E+1) shape
+        AND the same session spec: same-sized maps built under
+        different state registers (or message capacities) encode
+        different state machines, and AND-folding them would mark
+        genuinely novel (state, edge) rows as seen."""
+        from ..stateful.coverage import state_map_size
+        want = state_map_size(self.stateful_spec.n_states,
+                              self.program.n_edges)
+        if arr.shape != (want,):
+            raise ValueError(
+                f"state-map is {arr.shape[0]} bytes but "
+                f"{self.program.name!r} with n_states="
+                f"{self.stateful_spec.n_states} has {want}")
+        meta = d.get("stateful")
+        if meta is not None:
+            mine = self._spec_dict()
+            theirs = {k: meta.get(k) for k in mine}
+            if theirs != mine:
+                raise ValueError(
+                    f"state spec mismatch: state is from {theirs}, this "
+                    f"instance runs {mine} — same-sized maps under "
+                    f"different specs encode different state machines")
+
     def _load_maps(self, d: Dict[str, Any]):
         for key in ("virgin_bits", "virgin_crash", "virgin_tmout"):
             if key in d:
                 arr = decode_array(d[key])
                 self._check_state_layout(d, arr)
                 yield key, torch.as_tensor(arr, device=self.device)
+        if self.stateful_spec is not None and "virgin_state" in d:
+            arr = decode_array(d["virgin_state"])
+            self._check_state_state_layout(d, arr)
+            yield "virgin_state", torch.as_tensor(arr, device=self.device)
 
     def set_state(self, state: str) -> None:
         d = json.loads(state)

@@ -8,6 +8,7 @@ from .vm import Program, VMResult, run_batch
 from .compiler import Assembler, assign_block_ids
 from . import targets
 from . import targets_cgc  # registers the CGC-grade targets
+from . import targets_stateful  # registers the session-tier targets
 
 __all__ = ["Program", "VMResult", "run_batch", "Assembler",
            "assign_block_ids", "targets"]

@@ -57,8 +57,10 @@ import torch
 
 from .. import FUZZ_NONE
 from ..models.vm import _mix32
+from ..stateful.coverage import state_triage, state_triage_exact
+from ..stateful.session import _run_session_impl
 from .host_copy import HostCopy
-from .vm_kernel import compact_lanes, fuzz_batch_2phase
+from .vm_kernel import compact_lanes, fuzz_batch_2phase, havoc_from_ring
 
 #: default seed-slot ring size (slot 0 = pinned base seed)
 DEFAULT_RING_SLOTS = 32
@@ -326,10 +328,10 @@ def run_generations(instrs, edge_table, u_slots, seg_id, ring: RingState,
                     stack_pow2=4, g=1, phase1_steps=0, reseed=True,
                     adm_cap=DEFAULT_ADM_CAP,
                     findings_cap=DEFAULT_FINDINGS_CAP, stateful=None,
-                    learn=False, grammar=False):
+                    vs=None, learn=False, grammar=False):
     """G generations, enqueued on the current stream with no host read.
-    Returns ((vb, vc, vh), ring', report fields) — the report fields in
-    ``GenerationOutcome``'s order.
+    Returns ((vb, vc, vh, vs), ring', report fields) — the report
+    fields in ``GenerationOutcome``'s order.
 
     ``its0`` int64[B] holds generation 0's absolute iteration numbers
     (uint32 values, padded to the batch shape with lane-0 repeats);
@@ -337,13 +339,22 @@ def run_generations(instrs, edge_table, u_slots, seg_id, ring: RingState,
     to j sequential host batches.  ``gen0`` and ``salt`` are host ints.
     On CUDA tensors each generation runs the fused kernel two-phase
     (``phase1_steps``) with its seed read from the ring; on the CPU its
-    plain version, single phase.  The stateful, learn and grammar
-    tiers are not ported: asking for one raises."""
+    plain version, single phase.
+
+    ``stateful`` (an ``(m_max, n_states, state_reg)`` tuple) runs the
+    session tier: each generation's candidates come from ``havoc_at``
+    in torch ops on the ring's selected slot (``havoc_from_ring``, the
+    same lanes the fused kernel would draw) and run as framed sequences
+    through the session executor (plain torch on the card too, as the
+    JAX package runs them in XLA); the state x edge map ``vs`` is
+    triaged alongside the classic maps and the lane verdict becomes
+    ``max(classic, state)``.  Without it ``vs`` is returned untouched.
+    The learn and grammar tiers are not ported: asking for one
+    raises."""
     from ..instrumentation.base import pack_verdicts
     from ..instrumentation.jit_harness import _judge
 
-    for tier, asked in (("stateful", stateful is not None),
-                        ("learn", bool(learn)), ("grammar", bool(grammar))):
+    for tier, asked in (("learn", bool(learn)), ("grammar", bool(grammar))):
         if asked:
             raise ValueError(f"generations with the {tier} tier: the "
                              f"{tier} tier is not ported yet")
@@ -374,12 +385,23 @@ def run_generations(instrs, edge_table, u_slots, seg_id, ring: RingState,
         sel = _select_slot(ring.filled[:ring.slots], gen_id, salt) \
             if reseed else slot0
         its = (its0 + j * int(n_real)) & M32
-        res, bufs, lens = fuzz_batch_2phase(
-            instrs, edge_table, ring.bufs, ring.lens, sel, base_key, its,
-            mem_size, max_steps, n_edges, stack_pow2=stack_pow2,
-            phase1_steps=phase1_steps)
+        if stateful is not None:
+            bufs, lens = havoc_from_ring(ring.bufs, ring.lens, sel,
+                                         base_key, its, stack_pow2)
+            res = _run_session_impl(instrs, edge_table, bufs, lens,
+                                    mem_size, max_steps, n_edges,
+                                    *stateful)
+        else:
+            res, bufs, lens = fuzz_batch_2phase(
+                instrs, edge_table, ring.bufs, ring.lens, sel, base_key,
+                its, mem_size, max_steps, n_edges, stack_pow2=stack_pow2,
+                phase1_steps=phase1_steps)
         statuses, new_paths, uc, uh, _exit, vb, vc, vh, _counts = _judge(
             res, u_slots, seg_id, vb, vc, vh, exact)
+        if stateful is not None:
+            s_rets, vs = (state_triage_exact if exact
+                          else state_triage)(vs, res.se_counts)
+            new_paths = torch.maximum(new_paths, s_rets)
         packed = pack_verdicts(statuses, new_paths, uc, uh)
         flags = ((statuses != FUZZ_NONE) | (new_paths > 0)) & lanes_real
         aflags = (new_paths == 2) & lanes_real
@@ -393,4 +415,4 @@ def run_generations(instrs, edge_table, u_slots, seg_id, ring: RingState,
     report = ([t[:F] for t in fr[:5]] + [fr[5], torch.stack(sels),
                                          torch.stack(araws)] + adm
               + [ring.filled[:ring.slots].clone()])
-    return (vb, vc, vh), ring, tuple(report)
+    return (vb, vc, vh, vs), ring, tuple(report)

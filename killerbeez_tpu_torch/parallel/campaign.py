@@ -10,7 +10,10 @@ ordinary ``Fuzzer`` triage, so findings land md5-deduped in
 State flows through the attached jit_harness instrumentation: its
 virgin maps seed the mesh state (so ``-isf`` resume works), and after
 every step they are the mesh's whole maps again, so ``get_state()``
-exports the standard merger-compatible JSON.
+exports the standard merger-compatible JSON.  A stateful instrumentation
+(``--stateful``) takes its session spec to the mesh, whose state x edge
+map rides the mesh state as one row per dp shard, dp-folded like the
+classic maps.
 """
 
 from __future__ import annotations
@@ -80,16 +83,23 @@ class ShardedCampaignDriver(Driver):
                               if self.device.type == "cpu" else None)
         prog = instrumentation.program
         engine = instrumentation.engine
+        # stateful session tier: the instrumentation's resolved spec
+        # (jit_harness already stood its engine down to torch)
+        sspec = getattr(instrumentation, "stateful_spec", None)
+        self._stateful = None if sspec is None else (
+            sspec.m_max, sspec.n_states, sspec.state_reg)
         self._step = make_sharded_fuzz_step(
             prog, self.mesh, self.batch_per_device,
             max_len=mutator.max_length,
             stack_pow2=int(mutator.options.get("stack_pow2", 4)),
-            engine=engine, seed=int(mutator.options.get("seed", 0)))
+            engine=engine, seed=int(mutator.options.get("seed", 0)),
+            stateful=self._stateful)
         # seed the mesh state from the instrumentation's maps so -isf
         # resume and merged states carry over
         self.state = state_from_maps(
             self.mesh, instrumentation.virgin_bits,
-            instrumentation.virgin_crash, instrumentation.virgin_tmout)
+            instrumentation.virgin_crash, instrumentation.virgin_tmout,
+            vs=getattr(instrumentation, "virgin_state", None))
         #: accumulated mesh-wide stats: per-shard snapshots folded
         #: through telemetry.aggregate each sync epoch
         self.fleet_stats: dict = {}
@@ -129,6 +139,10 @@ class ShardedCampaignDriver(Driver):
         instr = self.instrumentation
         for name in ("virgin_bits", "virgin_crash", "virgin_tmout"):
             setattr(instr, name, self.state.full_map(name))
+        if self._stateful is not None:
+            # dp rows are fold-identical; row 0 is the canonical view
+            # get_state()/merge()/state_coverage_stats() export
+            instr.virgin_state = self.state.virgin_state[0]
         instr.total_execs += execs
         n_dp = self.mesh.shape["dp"]
         self._host_step += execs // max(self.batch_quantum, 1)
@@ -230,7 +244,7 @@ class ShardedCampaignDriver(Driver):
             instr.program, self.mesh, bpd, max_len=L,
             stack_pow2=int(self.mutator.options.get("stack_pow2", 4)),
             engine=instr.engine, seed=mseed, salt=mseed & 0xFFFFFFFF,
-            adm_cap=adm_cap, findings_cap=cap)
+            adm_cap=adm_cap, findings_cap=cap, stateful=self._stateful)
         self._gen_ring = sharded_gen_ring_init(self.mesh, seed, seed_len,
                                                slots, L)
         self._gen_ring_key = key

@@ -56,6 +56,8 @@ from ..ops.static_triage import _or_rows, counts_by_slot, make_static_maps
 from ..ops.vm_kernel import (
     compact_lanes, fuzz_batch, havoc_from_ring, run_batch, seed_ring,
 )
+from ..stateful.coverage import state_triage
+from ..stateful.session import _run_session_impl
 from ..utils.logging import WARNING_MSG
 
 M32 = 0xFFFFFFFF
@@ -110,7 +112,10 @@ class ShardedFuzzState(NamedTuple):
     """The mesh's fuzzing state: each virgin map as its mp slices, slice
     m on ``devices[0][m]`` (dp replicas are equal after every fold and
     are handed out per step).  ``virgin_state`` is the stateful tier's
-    uint8[dp, 1] dummy, kept so the state keeps the JAX layout."""
+    state x edge map as uint8[dp, M] on ``devices[0][0]``, one row per
+    dp shard (rows equal after every dp fold; the map is tiny and
+    whole on every shard, so dp rows are its shard unit, as in the JAX
+    layout), or a uint8[dp, 1] dummy when the tier is off."""
     virgin_bits: tuple       # n_mp x uint8[map_size / n_mp]
     virgin_crash: tuple
     virgin_tmout: tuple
@@ -131,24 +136,29 @@ def _split(mesh: Mesh, full: torch.Tensor) -> tuple:
                  .clone() for m in range(n_mp))
 
 
-def state_from_maps(mesh: Mesh, vb, vc, vh, step: int = 0
+def state_from_maps(mesh: Mesh, vb, vc, vh, step: int = 0, vs=None
                     ) -> ShardedFuzzState:
-    """The mesh state holding these three whole maps (uint8 tensors)."""
-    return ShardedFuzzState(
-        *(_split(mesh, v) for v in (vb, vc, vh)), step,
-        torch.full((mesh.shape["dp"], 1), 0xFF, dtype=torch.uint8,
-                   device=mesh.devices[0][0]))
+    """The mesh state holding these three whole maps (uint8 tensors)
+    and, for the stateful tier, the whole state x edge map ``vs``
+    (uint8[M], tiled over the dp rows; None: the 1-byte dummy)."""
+    dev0 = mesh.devices[0][0]
+    n_dp = mesh.shape["dp"]
+    vs = (torch.full((n_dp, 1), 0xFF, dtype=torch.uint8, device=dev0)
+          if vs is None else vs.to(dev0).reshape(1, -1).repeat(n_dp, 1))
+    return ShardedFuzzState(*(_split(mesh, v) for v in (vb, vc, vh)),
+                            step, vs)
 
 
 def sharded_state_init(mesh: Mesh, map_size: int = MAP_SIZE,
                        state_map_size: int = 0) -> ShardedFuzzState:
-    """Fresh maps; ``map_size`` must be the program's (64KB x modules).
-    ``state_map_size`` > 0 is the stateful tier's, not ported yet."""
-    if state_map_size:
-        raise ValueError("the stateful tier is not ported yet")
-    full = torch.full((map_size,), 0xFF, dtype=torch.uint8,
-                      device=mesh.devices[0][0])
-    return state_from_maps(mesh, full, full, full)
+    """Fresh maps; ``map_size`` must be the program's (64KB x modules),
+    ``state_map_size`` the stateful tier's n_states x (E+1) bytes (0 =
+    tier off, a 1-byte dummy rides along)."""
+    dev0 = mesh.devices[0][0]
+    full = torch.full((map_size,), 0xFF, dtype=torch.uint8, device=dev0)
+    vs = (torch.full((int(state_map_size),), 0xFF, dtype=torch.uint8,
+                     device=dev0) if state_map_size else None)
+    return state_from_maps(mesh, full, full, full, vs=vs)
 
 
 def _shard_static_maps(program, n_mp: int):
@@ -246,7 +256,12 @@ class _ShardKernels:
     Engines (the JAX package's xla / pallas / pallas_fused): ``torch``
     the plain VM; ``cuda`` havoc in torch ops and ``kbz_vm_kernel`` over
     every lane; ``cuda_fused`` havoc and the VM in ``kbz_fuzz_kernel``.
-    On CPU tensors the kernels' wrappers take their plain versions."""
+    On CPU tensors the kernels' wrappers take their plain versions.
+
+    ``stateful`` (an ``(m_max, n_states, state_reg)`` tuple) runs the
+    session tier: candidates execute as framed sequences through the
+    session executor (plain torch, engine ``torch``) and
+    ``state_triage_row`` triages the state x edge map."""
 
     def __init__(self, program, mesh: Mesh, batch_per_device: int,
                  max_len: int, stack_pow2: int = 4, engine: str = "torch",
@@ -256,9 +271,12 @@ class _ShardKernels:
             raise ValueError("mp must divide the program's map size")
         if engine not in ENGINES:
             raise ValueError(f"unknown engine {engine!r}")
-        if stateful is not None:
-            raise ValueError("stateful mesh campaigns: the stateful tier "
-                             "is not ported yet")
+        self.stateful = (tuple(int(v) for v in stateful)
+                         if stateful is not None else None)
+        if self.stateful is not None and engine != "torch":
+            raise ValueError(
+                "stateful mesh campaigns need the torch engine (the "
+                "session executor is the plain engine path)")
         self.program = program
         self.mesh = mesh
         self.batch_per_device = int(batch_per_device)
@@ -326,6 +344,14 @@ class _ShardKernels:
         p = self.program
         instrs, table = self.tables(self.mesh.row(d))
         its = self.lanes(d)
+        if self.stateful is not None:
+            # session tier: the mutants are framed sequences and the
+            # result carries se_counts beside the classic fields
+            bufs, lens = havoc_from_ring(ring, ring_lens, sel, key, its,
+                                         self.stack_pow2)
+            return (_run_session_impl(instrs, table, bufs, lens,
+                                      p.mem_size, p.max_steps, p.n_edges,
+                                      *self.stateful), bufs, lens)
         if self.engine == "cuda_fused":
             return fuzz_batch(instrs, table, ring, ring_lens, sel, key, its,
                               p.mem_size, p.max_steps, p.n_edges,
@@ -399,6 +425,13 @@ class _ShardKernels:
                 acc.append(v[:-1])
         return (rets, uc, uh) + out
 
+    def state_triage_row(self, vs, se_counts):
+        """State x edge novelty of one dp row's lanes against its copy
+        of the (whole) state map — throughput mode with the row's own
+        in-batch dedup, as the JAX mesh does.  The caller schedules the
+        dp AND-fold on the classic maps' cadence."""
+        return state_triage(vs, se_counts)
+
 
 def _row_maps(mesh: Mesh, state: ShardedFuzzState):
     """maps[k][d][m]: map k's slice m on shard (d, m)'s device."""
@@ -407,32 +440,54 @@ def _row_maps(mesh: Mesh, state: ShardedFuzzState):
              for d in range(mesh.shape["dp"])] for name in MAPS]
 
 
-def _fold_maps(mesh: Mesh, maps) -> None:
-    """The dp AND-fold of every map slice, in place."""
+def _row_states(mesh: Mesh, state: ShardedFuzzState, stateful):
+    """vss[d]: dp row d's state x edge map on its device (None when the
+    stateful tier is off)."""
+    if stateful is None:
+        return None
+    return [state.virgin_state[d].to(mesh.row(d))
+            for d in range(mesh.shape["dp"])]
+
+
+def _fold_maps(mesh: Mesh, maps, vss=None) -> None:
+    """The dp AND-fold of every map slice (and of the state x edge
+    maps, when given), in place."""
     for k in range(3):
         for m in range(mesh.shape["mp"]):
             folded = _gather_and_fold([maps[k][d][m]
                                        for d in range(mesh.shape["dp"])])
             for d, v in enumerate(folded):
                 maps[k][d][m] = v
+    if vss is not None:
+        vss[:] = _gather_and_fold(vss)
 
 
-def _state_after(state: ShardedFuzzState, maps, steps: int
+def _state_after(state: ShardedFuzzState, maps, steps: int, vss=None
                  ) -> ShardedFuzzState:
     """The state holding the folded maps (row 0's replicas)."""
+    vs = state.virgin_state if vss is None else \
+        _stack(vss, state.virgin_state.device)
     return state._replace(virgin_bits=tuple(maps[0][0]),
                           virgin_crash=tuple(maps[1][0]),
                           virgin_tmout=tuple(maps[2][0]),
-                          step=state.step + steps)
+                          step=state.step + steps, virgin_state=vs)
 
 
-def _check_state(state: ShardedFuzzState, program) -> None:
+def _check_state(state: ShardedFuzzState, program, stateful=None) -> None:
     size = sum(int(p.shape[0]) for p in state.virgin_bits)
     if size != program.map_size:
         raise ValueError(
             f"state map is {size} bytes but {program.name!r} needs "
             f"{program.map_size} — pass sharded_state_init(mesh, "
             f"program.map_size)")
+    if stateful is not None:
+        want = stateful[1] * (program.n_edges + 1)
+        if state.virgin_state.shape[-1] != want:
+            raise ValueError(
+                f"state x edge map is {state.virgin_state.shape[-1]} "
+                f"bytes but the session spec needs {want} — pass "
+                f"sharded_state_init(mesh, program.map_size, "
+                f"state_map_size)")
 
 
 def _stack(parts, dev) -> torch.Tensor:
@@ -489,7 +544,7 @@ def make_sharded_fuzz_step(program, mesh: Mesh, batch_per_device: int,
                 out[dev] = seed_ring(seed_buf.to(dev), seed_len)
         return [out[mesh.row(d)] for d in range(n_dp)]
 
-    def local_step(maps, rings, lo, hi):
+    def local_step(maps, vss, rings, lo, hi):
         """One step of every shard: rows mutate, execute and triage,
         then the dp AND-fold.  Returns the per-row outputs."""
         rows = []
@@ -502,6 +557,12 @@ def make_sharded_fuzz_step(program, mesh: Mesh, batch_per_device: int,
                 d, *(maps[k][d] for k in range(3)), res.counts, statuses)
             for k in range(3):
                 maps[k][d] = new[k]
+            if vss is not None:
+                # state x edge novelty joins the verdict (max, like the
+                # single-device session step)
+                s_rets, vss[d] = kern.state_triage_row(vss[d],
+                                                       res.se_counts)
+                rets = torch.maximum(rets, s_rets)
             # in-step compaction: the interesting lanes' bytes, so
             # campaign triage never pulls the full [B, L] tensor
             flags = (statuses != FUZZ_NONE) | (rets > 0)
@@ -510,35 +571,37 @@ def make_sharded_fuzz_step(program, mesh: Mesh, batch_per_device: int,
             rows.append((statuses, rets, uc, uh, res.exit_code, bufs, lens,
                          sel + d * bpd, bufs[sel.long()], lens[sel.long()],
                          count.reshape(1)))
-        _fold_maps(mesh, maps)
+        _fold_maps(mesh, maps, vss)
         return [_cat(col, dev0) for col in zip(*rows)]
 
     def step(state: ShardedFuzzState, seed_buf, seed_len, base_it):
-        _check_state(state, program)
+        _check_state(state, program, kern.stateful)
         maps = _row_maps(mesh, state)
+        vss = _row_states(mesh, state, kern.stateful)
         lo, hi = _counter_halves(base_it)
         (statuses, rets, uc, uh, exit_codes, bufs, lens, sel_idx, sel_bufs,
-         sel_lens, counts) = local_step(maps, seeds(seed_buf, seed_len),
-                                        lo, hi)
-        return (_state_after(state, maps, 1), statuses, rets, uc, uh,
+         sel_lens, counts) = local_step(maps, vss,
+                                        seeds(seed_buf, seed_len), lo, hi)
+        return (_state_after(state, maps, 1, vss), statuses, rets, uc, uh,
                 exit_codes, bufs, lens, (sel_idx, sel_bufs, sel_lens,
                                          counts))
 
     def step_multi(state: ShardedFuzzState, seed_buf, seed_len, base_it,
                    k: int):
-        _check_state(state, program)
+        _check_state(state, program, kern.stateful)
         maps = _row_maps(mesh, state)
+        vss = _row_states(mesh, state, kern.stateful)
         rings = seeds(seed_buf, seed_len)
         lo0, hi0 = _counter_halves(base_it)
         outs = []
         for j in range(int(k)):
             lo, hi = _advance(lo0, hi0, j * n_dp * bpd)
             (statuses, rets, uc, uh, _ec, bufs, lens, *compact) = \
-                local_step(maps, rings, lo, hi)
+                local_step(maps, vss, rings, lo, hi)
             outs.append([pack_verdicts(statuses, rets, uc, uh), bufs, lens]
                         + compact)
         packed, bufs, lens, *compact = (torch.stack(c) for c in zip(*outs))
-        return (_state_after(state, maps, int(k)), packed, bufs, lens,
+        return (_state_after(state, maps, int(k), vss), packed, bufs, lens,
                 tuple(compact))
 
     step.multi = step_multi
@@ -640,7 +703,7 @@ def make_sharded_generations(program, mesh: Mesh, batch_per_device: int,
         generation with it off (the host-mesh-loop parity cadence).  A
         value that does not divide ``g`` is decremented to a divisor
         (warned once per (E, g) pair)."""
-        _check_state(state, program)
+        _check_state(state, program, kern.stateful)
         g = int(g)
         asked = int(fold_every)
         fold = asked if asked > 0 else (g if reseed else 1)
@@ -656,6 +719,7 @@ def make_sharded_generations(program, mesh: Mesh, batch_per_device: int,
                 asked, g, fold)
         A_eff = A if reseed else 1
         maps = _row_maps(mesh, state)
+        vss = _row_states(mesh, state, kern.stateful)
         rings = list(ring.rings)
         if A_eff > rings[0].slots - 1:
             # admissions must land in distinct slots: a duplicate
@@ -693,6 +757,10 @@ def make_sharded_generations(program, mesh: Mesh, batch_per_device: int,
                     statuses)
                 for k in range(3):
                     maps[k][d] = new[k]
+                if vss is not None:
+                    s_rets, vss[d] = kern.state_triage_row(vss[d],
+                                                           res.se_counts)
+                    rets = torch.maximum(rets, s_rets)
                 packed = pack_verdicts(statuses, rets, uc, uh)
                 its = (kern.lanes(d) + lo) & M32
                 rings[d], araw, ledger = _ring_append_and_admit(
@@ -701,14 +769,14 @@ def make_sharded_generations(program, mesh: Mesh, batch_per_device: int,
                     reseed)
                 ledgers[d].append((sel, araw) + tuple(ledger))
             if (j + 1) % fold == 0:
-                _fold_maps(mesh, maps)
+                _fold_maps(mesh, maps, vss)
         per_shard = []
         for d in range(n_dp):
             cols = [torch.stack(c) for c in zip(*ledgers[d])]
             per_shard.append([t[:F] for t in frs[d][:5]] + [frs[d][5]]
                              + cols)
         rep = tuple(_stack(col, dev0) for col in zip(*per_shard))
-        return (_state_after(state, maps, g), ShardedGenRing(tuple(rings)),
-                rep)
+        return (_state_after(state, maps, g, vss),
+                ShardedGenRing(tuple(rings)), rep)
 
     return dispatch

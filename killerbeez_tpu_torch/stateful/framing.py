@@ -22,10 +22,10 @@ reject its own mutants):
       to the bytes actually remaining (possibly 0 — an empty message
       is a legal zero-length exec).
 
-``unframe`` (host, numpy-free) and ``parse_frames_np`` (host numpy,
-batched) implement the SAME clipping rules.  Copied from the JAX
-package for the manager mutator's ``{"framed": 1}`` mode; the device
-parse of the stateful session tier is not ported yet.
+``unframe`` (host, numpy-free), ``parse_frames_np`` (host numpy,
+batched) and ``parse_frames`` (torch, on the buffers' device)
+implement the SAME clipping rules — the host-driven and in-scan
+session executors must agree on where every message boundary sits.
 """
 
 from __future__ import annotations
@@ -107,6 +107,36 @@ def parse_frames_np(bufs: np.ndarray, lengths: np.ndarray,
         mlens[:, k] = ln
         off = off + ln
     return m.astype(np.int32), offs, mlens
+
+
+def parse_frames(bufs, lengths, m_max: int):
+    """Batched parse on the buffers' device, bit-identical to
+    ``parse_frames_np`` (and to ``unframe`` row-wise): uint8[B, L]
+    + int[B] tensors -> (m int32[B], offs int32[B, m_max], mlens
+    int32[B, m_max])."""
+    import torch
+
+    L = bufs.shape[1]
+    hdr = header_len(m_max)
+    lengths = lengths.to(device=bufs.device, dtype=torch.int64)
+
+    def byte_at(i: int):
+        ok = (i < lengths) & (i < L)
+        return torch.where(ok, bufs[:, min(i, L - 1)].to(torch.int64), 0)
+
+    m = byte_at(0).clamp(1, m_max)
+    offs, mlens = [], []
+    off = torch.full_like(lengths, hdr)
+    for k in range(m_max):
+        live = k < m
+        want = byte_at(1 + k)
+        ln = torch.minimum(want, (lengths - off).clamp(min=0))
+        ln = torch.where(live, ln, 0)
+        offs.append(torch.where(live, off, 0))
+        mlens.append(ln)
+        off = off + ln
+    return (m.to(torch.int32), torch.stack(offs, 1).to(torch.int32),
+            torch.stack(mlens, 1).to(torch.int32))
 
 
 def reframe(buf: bytes, msgs: Sequence[bytes], m_max: int) -> bytes:

@@ -7,9 +7,8 @@ coverage ids, empty modules, ``max_steps`` shortfalls, statically
 dead and must-crash blocks.  Exit code 1 when any error-severity
 finding exists (the CI lint lane gates on this), else 0.  Run as
 ``python -m killerbeez_tpu_torch.tools.lint_tool`` (``kb-lint`` below).
-The conformance checks (``--gaps-dir``) need the hybrid tier and the
-session-tier checks need the stateful targets; neither is ported yet,
-so ``--gaps-dir`` exits 2 and no built-in target is stateful.
+The conformance checks (``--gaps-dir``) need the hybrid tier, which is
+not ported yet, so ``--gaps-dir`` exits 2.
 
 Usage:
     kb-lint                       # all built-in targets
@@ -76,18 +75,24 @@ def _load_programs(args) -> List:
 def lint_report(program, want_dict: bool = False,
                 want_vsa: bool = False) -> Dict:
     """One target's full report (the --json per-target payload).
-    ``want_vsa`` runs the value-set fixpoint, enables
+    Stateful targets (registered in models.targets_stateful) get the
+    session-tier checks automatically: state-unreachable /
+    state-clip warnings and the dead-block -> session-only-block
+    downgrade.  ``want_vsa`` runs the value-set fixpoint, enables
     the infeasible-edge / value-range-contradiction /
     guaranteed-oob-store checks, and adds a ``vsa`` stats section
     mirroring ``stats``; off (the default) the report is
     bit-identical to the pre-VSA tool."""
+    from ..models.targets_stateful import get_stateful_spec
     cfg = build_cfg(program)
     df = analyze_dataflow(program)
     vsa = None
     if want_vsa:
         from ..analysis.vsa import analyze_vsa
         vsa = analyze_vsa(program)
-    findings = lint_program(program, cfg, df, vsa=vsa)
+    findings = lint_program(program, cfg, df,
+                            stateful=get_stateful_spec(program.name),
+                            vsa=vsa)
     rep = {
         "stats": universe_stats(program, cfg),
         "findings": [f.as_dict() for f in findings],

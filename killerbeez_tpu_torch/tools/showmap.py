@@ -3,7 +3,8 @@
 The port of the JAX package's ``tools/showmap.py`` (the reference's
 afl-showmap): execute the target once on the given input and print the
 nonzero map slots as ``slot:count`` lines; for KBVM targets the static
-edge universe is logged beside them.
+edge universe is logged beside them, and for a stateful instrumentation
+the ``state:slot:count`` records of the session.
 
 Usage (on the card; add ``--device cpu`` for the plain versions):
     python -m killerbeez_tpu_torch.tools.showmap file jit_harness \
@@ -68,6 +69,17 @@ def main(argv: Optional[List[str]] = None) -> int:
         if program is not None:
             INFO_MSG("%s", static_summary(
                 program, (int(ln.split(":")[0]) for ln in lines)))
+        # stateful session tier: the input's state x edge record
+        # (state:slot:count, logged so stdout stays slot:count
+        # parseable for the classic consumers)
+        sp_fn = getattr(instrumentation, "get_state_pairs", None)
+        pairs = sp_fn() if sp_fn is not None else None
+        if pairs:
+            states = sorted({s for s, _, _ in pairs})
+            INFO_MSG("state coverage: %d protocol state(s) %s, "
+                     "%d state x edge pair(s): %s",
+                     len(states), states, len(pairs),
+                     " ".join(f"{s}:{e}:{c}" for s, e, c in pairs))
         text = "".join(f"{ln}\n" for ln in lines)
         if args.output:
             write_buffer_to_file(args.output, text.encode())

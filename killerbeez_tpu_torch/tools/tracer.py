@@ -93,6 +93,31 @@ def write_pair_file(path: str, pairs) -> None:
     write_buffer_to_file(path, text.encode())
 
 
+def read_pair_file(path: str):
+    """{(from, to), ...} from a reference-format edge file."""
+    pairs = set()
+    for line in read_file(path).decode().splitlines():
+        line = line.strip()
+        if not line:
+            continue
+        f, t = line.split(":")
+        pairs.add((int(f), int(t)))
+    return pairs
+
+
+def read_edge_file(path: str) -> Dict[int, int]:
+    """{edge: count} from an ``edge:count`` file (the minimizer's
+    input)."""
+    edges: Dict[int, int] = {}
+    for line in read_file(path).decode().splitlines():
+        line = line.strip()
+        if not line:
+            continue
+        e, c = line.split(":")
+        edges[int(e)] = int(c)
+    return edges
+
+
 def open_traced(args):
     """(driver, instrumentation) for a tool's argv: the instrumentation
     with edges forced on, on ``args.device``."""

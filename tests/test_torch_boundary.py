@@ -61,9 +61,8 @@ def test_torch_engine_refused_on_the_card(monkeypatch):
             {"target": "test", "engine": "torch"}), device="cuda")
 
 
-@pytest.mark.parametrize("opt", [{"stateful": 1}, {"learn": 1},
-                                 {"grammar": "auto"}, {"n_states": 2},
-                                 {"msgs": 2}])
+@pytest.mark.parametrize("opt", [{"learn": 1}, {"grammar": "auto"},
+                                 {"grammar_stage": 64}])
 def test_unported_options_raise(opt):
     with pytest.raises(ValueError, match="not ported yet"):
         JitHarnessInstrumentation(json.dumps({"target": "test", **opt}),

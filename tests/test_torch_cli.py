@@ -89,7 +89,8 @@ def test_state_loads_across_packages(campaigns):
 @pytest.mark.parametrize("extra,flag", [
     (["--auto-repair"], "--auto-repair"),
     (["--sync-manager", "m"], "--sync-manager"),
-    (["--stateful"], "--stateful"), (["--hybrid", "test"], "--hybrid"),
+    (["--learn-interval", "4"], "--learn-interval"),
+    (["--hybrid", "test"], "--hybrid"),
     (["--gossip"], "--gossip"), (["--learn"], "--learn"),
 ])
 def test_unported_flag_exits_2(extra, flag, tmp_path, capsys):

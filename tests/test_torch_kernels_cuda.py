@@ -674,3 +674,56 @@ def test_focus_mask_runs_the_unfused_kernel(cuda):
     mut.set_focus_mask(None)
     drv.test_batch(1024)
     assert vk.LAUNCHES["kbz_fuzz_kernel"] == before["kbz_fuzz_kernel"] + 1
+
+
+@pytest.mark.parametrize("name", ["session_auth", "tcp_like"])
+def test_session_executor_on_the_card_equals_the_cpu(name, cuda):
+    """The session executor (plain torch on the card) and both state
+    triages on 4096 havoc mutants of the framed seed: every
+    SessionResult field, the rets and virgin_state equal the CPU's, and
+    no kernel launches."""
+    from killerbeez_tpu_torch.models import targets_stateful as ts
+    from killerbeez_tpu_torch.mutators.randomized import HavocMutator
+    from killerbeez_tpu_torch.stateful import coverage as sc
+    from killerbeez_tpu_torch.stateful.session import run_session_batch
+    prog, spec = get_target(name), ts.get_stateful_spec(name)
+    mut = HavocMutator('{"seed": 5}', ts.framed_seed(name), device="cpu")
+    bufs, lens = mut.mutate_batch(4096)
+    before = dict(vk.LAUNCHES)
+    got = run_session_batch(prog, bufs.to(cuda), lens.to(cuda), spec)
+    ref = run_session_batch(prog, bufs, lens, spec)
+    _equal(got, ref)
+    v0 = sc.fresh_virgin_state(spec.n_states, prog.n_edges)
+    for tri in (sc.state_triage, sc.state_triage_exact):
+        _equal(tri(v0.to(cuda), got.se_counts), tri(v0, ref.se_counts))
+    assert vk.LAUNCHES == before
+
+
+def test_stateful_generations_on_the_card_equal_the_cpu(cuda):
+    """A stateful -G 4 dispatch on the card: every outcome field and
+    virgin_state equal the CPU's, and no kernel launches (the session
+    executor is plain torch)."""
+    import json
+    from killerbeez_tpu_torch.instrumentation.jit_harness import (
+        JitHarnessInstrumentation,
+    )
+    from killerbeez_tpu_torch.models import targets_stateful as ts
+    from killerbeez_tpu_torch.mutators.randomized import HavocMutator
+    instr = JitHarnessInstrumentation(json.dumps(
+        {"target": "tcp_like", "stateful": 1, "novelty": "throughput"}))
+    twin = JitHarnessInstrumentation(json.dumps(
+        {"target": "tcp_like", "stateful": 1, "novelty": "throughput"}),
+        device="cpu")
+    seed = ts.framed_seed("tcp_like")
+    outs = []
+    before = dict(vk.LAUNCHES)
+    for ins, dev in ((instr, "cuda"), (twin, "cpu")):
+        mut = HavocMutator('{"seed": 11}', seed, device=dev)
+        outs.append(ins.run_batch_generations(
+            mut, mut.peek_iterations(2048), 4).materialize())
+    assert vk.LAUNCHES == before
+    for f in outs[0]._fields:
+        a, b = getattr(outs[0], f), getattr(outs[1], f)
+        if hasattr(a, "shape"):
+            assert (a == b).all(), f
+    assert torch.equal(instr.virgin_state.cpu(), twin.virgin_state)

@@ -151,8 +151,11 @@ def test_tiers_not_ported_are_refused():
     for tier in ("learn", "grammar"):
         with pytest.raises(ValueError, match="not ported yet"):
             make_sharded_generations(prog, mesh, 8, 16, **{tier: True})
-    with pytest.raises(ValueError, match="stateful"):
-        make_sharded_generations(prog, mesh, 8, 16, stateful=(4, 8, 0))
+    with pytest.raises(ValueError, match="stateful mesh campaigns need "
+                       "the torch engine"):
+        make_sharded_generations(prog, mesh, 8, 16, engine="cuda_fused",
+                                 stateful=(4, 8, 0))
+    make_sharded_generations(prog, mesh, 8, 16, stateful=(4, 8, 0))
 
 
 # ---------------------------------------------------------------------------

@@ -160,9 +160,12 @@ def test_mp_must_divide_map_and_engines_are_named():
     with pytest.raises(ValueError, match="unknown engine 'xla'"):
         make_sharded_fuzz_step(prog, _torch_mesh(1, 1), 8, 16,
                                engine="xla")
-    with pytest.raises(ValueError, match="stateful"):
+    with pytest.raises(ValueError, match="stateful mesh campaigns need "
+                       "the torch engine"):
         make_sharded_fuzz_step(prog, _torch_mesh(1, 1), 8, 16,
-                               stateful=(4, 8, 0))
+                               engine="cuda", stateful=(4, 8, 0))
+    make_sharded_fuzz_step(prog, _torch_mesh(1, 1), 8, 16,
+                           stateful=(4, 8, 0))
 
 
 # ---------------------------------------------------------------------------

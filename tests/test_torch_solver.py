@@ -99,11 +99,6 @@ def test_concrete_run_and_replay_match_jax(name):
             JA.check_replay(jp, data, jv)
 
 
-def test_lint_refuses_the_session_checks():
-    with pytest.raises(NotImplementedError, match="session tier"):
-        TA.lint_program(targets.get_target("test"), stateful=object())
-
-
 def test_priors_sidecar_round_trips_across_packages(tmp_path):
     jp, tp = _progs("imgparse_vm")
     doc = TA.value_priors(tp, target="imgparse_vm")
@@ -170,8 +165,7 @@ def test_kb_solve_matches_jax(argv):
 
 
 def test_kb_solve_unknown_target_exits_2():
-    """The same refusal; the list of known targets is each package's
-    own (the port has no stateful targets yet)."""
+    """The same refusal and the same list of known targets."""
     rc, out, err = _run(solve_tool.main, ["no_such_target"])
     jrc, jout, jerr = _run(jax_solve.main, ["no_such_target"])
     assert (rc, out) == (jrc, jout) == (2, "")
