@@ -184,15 +184,35 @@ It builds the CUDA kernels from ``killerbeez_tpu_torch/csrc`` and:
      deep-state edges hit, with the JAX bench's gate (>= 1 deep-state
      edge with ``--stateful``, none without) and no kernel launched by
      the stateful runs;
+  13. (run before the record) the grammar tier and the target zoo: (a)
+     ``grammar_havoc_at`` on 65536 lanes card == CPU (bytes and
+     lengths) with the degenerate tables and the grammar of each gated
+     zoo instance (``models/zoo.GATED_NAMES``), on the card the
+     degenerate tables == ``havoc_at``, and its event-span ms per batch;
+     (b) through ``cli.main`` at ``PIPELINE_DEPTH = 1``, ``-b 1024`` on
+     ``zoo:tlv:depth=2,bug=1``, card == CPU: havoc with the harness's
+     ``grammar`` option at ``-G 4``, the same at ``--mesh 1,1 -G 4``,
+     and the host-driven ``grammar`` mutator (md5 sets, ring
+     admissions, ``-isd``, ``-msd``, counters; ``kbz_vm_kernel``
+     launched on the card); (c) per gated instance at ``-b 65536`` (32
+     batches), in turns: the structured lane (``-G 16`` with the
+     grammar), the blind lane (the same without it) and the grammar
+     mutator host-driven: execs/s and whether each hit the certified
+     deep edge, with the gate that the structured lane hits it on every
+     instance; (d) ``kbz-supervise`` on the card over a small campaign
+     with one injected device loss: exit 0, a clean last exit, findings
+     equal to a fault-free control run, then kb-corpus, kb-timeline and
+     kb-stats ``--once`` on its output;
   9. prints one ``{"kernels": [...]}`` line (launches: the first
      host-driven, the first ``-G 16``, the first mesh, the first edges,
      the first rare-edge, the first crack flagship and the first
      single-shot run of phase 12c together;
      the all-lanes ``kbz_vm_kernel`` row from the mesh's cuda-engine
      run, the unfiltered ``ipt`` run, the rare-edge run's signer, phase
-     8c's afl, zzuf and honggfuzz runs and the first crack flagship
-     run), then the card line, then the result line ``{"ok": true,
-     "device": {...}}`` last.  Each phase's wall
+     8c's afl, zzuf and honggfuzz runs, the first crack flagship run
+     and phase 13c's structured and grammar-mutator runs), then the
+     card line, then the result line ``{"ok": true, "device": {...}}``
+     last.  Each phase's wall
      time is printed as it ends.
 
 Any failure raises: the script exits non-zero and prints no result.
@@ -2228,6 +2248,257 @@ def stateful_flagships(card, seeds):
     return first
 
 
+# -- the grammar tier and the zoo (phase 13) ------------------------------
+
+#: phase 13c's full-width run length per lane, in batches of B (2097152
+#: execs: two -G 16 dispatches, 64 times the JAX bench's grammar budget)
+GRAMMAR_BATCHES = 32
+#: phase 13b's card-against-CPU runs: -b 1024, 16 batches
+GRAMMAR_PARITY = ["-b", "1024", "-n", "16384"]
+
+
+def zoo_files():
+    """Each gated zoo instance's bundle, seed file and grammar file,
+    written under OUT/zoo."""
+    from killerbeez_tpu_torch.models.zoo import GATED_NAMES, build_zoo
+    d = OUT / "zoo"
+    d.mkdir(parents=True, exist_ok=True)
+    files = {}
+    for name in GATED_NAMES:
+        t = build_zoo(name)
+        stem = name.split(":")[1]
+        (d / f"{stem}.seed").write_bytes(t.seed)
+        (d / f"{stem}.json").write_text(t.grammar.to_json())
+        files[name] = (t, d / f"{stem}.seed", d / f"{stem}.json")
+    return files
+
+
+def grammar_parity(card, files, vk, prng):
+    """13a: grammar_havoc_at on B lanes, card == CPU (bytes and
+    lengths; tolerance: none) with the degenerate tables and each gated
+    instance's grammar, and on the card the degenerate tables against
+    havoc_at; its event-span ms per B-lane batch and the host's enqueue
+    ms.  Returns {grammar: event-span ms}."""
+    from killerbeez_tpu_torch.grammar import compile_grammar
+    from killerbeez_tpu_torch.grammar.device import grammar_havoc_at
+    from killerbeez_tpu_torch.grammar.tables import degenerate_tables
+    from killerbeez_tpu_torch.models.targets_cgc import tlvstack_vm_seed
+    from killerbeez_tpu_torch.ops.mutate_core import havoc_at
+    from killerbeez_tpu_torch.tools.timing import host_ms, timed
+    cases = [("degenerate", degenerate_tables(), tlvstack_vm_seed())] + [
+        (name, compile_grammar(t.grammar), t.seed)
+        for name, (t, _, _) in files.items()]
+    its = torch.arange(B, dtype=torch.int64)
+    ms = {}
+    for name, tables, sb in cases:
+        seed = torch.zeros(64, dtype=torch.uint8)
+        seed[:len(sb)] = torch.tensor(list(sb), dtype=torch.uint8)
+        outs = []
+        for dev in ("cuda", "cpu"):
+            keys = prng.fold_in(prng.key(MUT_SEED, device=dev), its.to(dev))
+            args = (seed.to(dev), len(sb), keys, tables, tables.device(dev))
+            outs.append(grammar_havoc_at(*args))
+        err = max_abs_err([t.cpu() for t in outs[0]], outs[1])
+        if name == "degenerate":
+            keys = prng.fold_in(prng.key(MUT_SEED, device="cuda"),
+                                its.cuda())
+            err = max(err, max_abs_err(outs[0], havoc_at(
+                seed.cuda(), len(sb), vk.havoc_words_for_keys(keys))))
+        if err:
+            raise AssertionError(f"grammar_havoc_at ({name}): card != CPU "
+                                 f"or degenerate != havoc_at (max_abs_err "
+                                 f"{err})")
+        keys = prng.fold_in(prng.key(MUT_SEED, device="cuda"), its.cuda())
+        args = (seed.cuda(), len(sb), keys, tables, tables.device("cuda"))
+        ms[name] = timed(lambda: grammar_havoc_at(*args), 5)
+        enqueue = host_ms(lambda: grammar_havoc_at(*args), 5)
+        changed = int((outs[1][0] != seed[None, :]).any(1).sum())
+        print(f"grammar_havoc_at ({name}, {B} lanes, {tables.meta[2]} "
+              f"field entries): card == CPU (max_abs_err 0"
+              f"{'; == havoc_at on the card' if name == 'degenerate' else ''}"
+              f"; {changed} lanes changed); event span {ms[name]:.3f} ms "
+              f"per batch, host enqueue {enqueue:.3f} ms [{card}]",
+              flush=True)
+    return ms
+
+
+def grammar_cli_parity(files):
+    """13b: through cli.main with PIPELINE_DEPTH = 1 at -b 1024 on the
+    zoo's tlv instance, card against CPU: havoc with the harness's
+    grammar option at -G 4, the same at --mesh 1,1 -G 4, and the
+    host-driven grammar mutator.  Each gives equal md5 sets, ring
+    admissions, -isd (the three virgin maps), -msd and fuzzer_stats
+    counters, and launches kbz_vm_kernel on the card."""
+    from killerbeez_tpu_torch.ops.vm_kernel import LAUNCHES
+    t, seed, gfile = files["zoo:tlv:depth=2,bug=1"]
+    gram = {"grammar": f"@{gfile}"}
+    runs = (("g4", ["-G", "4"], "havoc", gram, {}),
+            ("mesh_g4", ["--mesh", "1,1", "-G", "4"], "havoc", gram, {}),
+            ("host", [], "grammar", {}, gram))
+    rows = []
+    for run, extra, mutator, harness, mgram in runs:
+        got = {}
+        for dev in ("cuda", "cpu"):
+            iopts = {"target": t.name, "novelty": "throughput", **harness}
+            before = LAUNCHES["kbz_vm_kernel_all"]
+            out = OUT / f"grammar_{run}_{dev}"
+            got[dev] = inprocess(
+                out, *GRAMMAR_PARITY, *extra, "--device", dev, "-i",
+                json.dumps(iopts), mutator=mutator,
+                mopts={"seed": MUT_SEED, **mgram}, seed=seed)
+            got[dev]["admits"] = ring_admits(out)
+            if dev == "cuda":
+                launched = LAUNCHES["kbz_vm_kernel_all"] - before
+        if got["cuda"] != got["cpu"]:
+            diff = [k for k in got["cuda"] if got["cuda"][k] != got["cpu"][k]]
+            raise AssertionError(f"grammar {run}: card and CPU differ in "
+                                 f"{diff}")
+        if not got["cuda"]["findings"]["new_paths"]:
+            raise AssertionError(f"grammar {run}: no new paths")
+        if run != "host" and not got["cuda"]["admits"]:
+            raise AssertionError(f"grammar {run}: no ring admission")
+        if not launched:
+            raise AssertionError(f"grammar {run}: kbz_vm_kernel never "
+                                 "launched on the card")
+        rows.append(f"{run}: {len(got['cuda']['findings']['new_paths'])} "
+                    f"new paths, {len(got['cuda']['admits'])} ring "
+                    f"admissions, kbz_vm_kernel launched {launched} times")
+    print("grammar CLI parity (zoo:tlv:depth=2,bug=1, PIPELINE_DEPTH 1): "
+          "card == CPU (md5 sets, ring admissions, -isd, -msd, counters): "
+          + "; ".join(rows), flush=True)
+
+
+def zoo_deep_hit(t, isd: Path) -> bool:
+    """Whether a run's -isd virgin map touched the instance's certified
+    deep edge (its collision-free AFL slot)."""
+    from killerbeez_tpu_torch.utils.serialization import decode_array
+    vb = decode_array(json.loads(isd.read_text())["virgin_bits"])
+    p = t.program
+    return any(int(vb[int(p.edge_slot[e])]) != 0xFF
+               for e in range(len(p.edge_to))
+               if (int(p.edge_from[e]), int(p.edge_to[e])) == t.deep_edge)
+
+
+def grammar_flagships(card, files, gh_ms):
+    """13c: per gated instance, in turns, the structured lane (havoc
+    with the instance's grammar, -G 16), the blind lane (the same
+    without it) and the host-driven grammar mutator, each at -b 65536
+    for GRAMMAR_BATCHES batches: execs/s and whether each hit the
+    certified deep edge.  The gate: the structured lane hits it on
+    every instance.  Returns the kbz_vm_kernel launches of the
+    structured and grammar-mutator runs, summed."""
+    total = {}
+    rows = []
+    for name, (t, seed, gfile) in files.items():
+        stem = name.split(":")[1]
+        base = {"target": name, "novelty": "throughput"}
+        for lane, extra, iopts, mutator, mopts, need in (
+                ("structured", ["-G", "16"],
+                 {**base, "grammar": f"@{gfile}"}, "havoc", None,
+                 ("kbz_vm_kernel_all",)),
+                ("blind", ["-G", "16"], base, "havoc", None,
+                 ("kbz_fuzz_kernel",)),
+                ("grammar_mutator", [], base, "grammar",
+                 {"seed": MUT_SEED, "grammar": f"@{gfile}"},
+                 ("kbz_vm_kernel_all",))):
+            run = f"zoo_{stem}_{lane}"
+            isd = OUT / f"{run}.isd"
+            launches, rate, _ = flagship(
+                run, *extra, "-isd", str(isd), batches=GRAMMAR_BATCHES,
+                iopts=iopts, need=need, mutator=mutator, mopts=mopts,
+                seed=seed)
+            hit = zoo_deep_hit(t, isd)
+            if lane == "structured" and not hit:
+                raise AssertionError(f"{run}: the structured lane missed "
+                                     f"the certified deep edge")
+            if lane != "blind":
+                for k, v in launches.items():
+                    total[k] = total.get(k, 0) + v
+            rows.append(f"{name} {lane}: {rate:.0f} execs/s, deep edge "
+                        f"{'hit' if hit else 'missed'}")
+    print(f"grammar flagships on {card} ({GRAMMAR_BATCHES} batches of {B}, "
+          f"in turns per instance: structured -G 16, blind -G 16, the "
+          f"grammar mutator host-driven; grammar_havoc_at event span per "
+          f"batch: " + ", ".join(f"{k} {v:.3f} ms" for k, v in gh_ms.items())
+          + "): " + "; ".join(rows), flush=True)
+    return total
+
+
+def supervisor_run():
+    """13d: kbz-supervise on the card over a small port campaign with
+    one injected device loss (device_dispatch raise at its third
+    dispatch, first launch only): exit 0, supervisor.jsonl ending in a
+    clean exit after a device-lost one and a probe that counted a card,
+    findings equal to a fault-free control run in this process; then
+    kb-corpus, kb-timeline and kb-stats --once on its output, each
+    exiting 0."""
+    from killerbeez_tpu_torch.tools import corpus_tool, stats_tui
+    from killerbeez_tpu_torch.tools import timeline_tool
+    # the JAX suite's supervised campaign (tests/test_resilience.py):
+    # at this seed and shape the resumed run's findings converge on the
+    # fault-free run's in both packages (ROADMAP Queue C 4: at other
+    # shapes both re-report crashes after a device-loss resume)
+    (OUT / "sup_seed.bin").write_bytes(bytes(8))
+
+    def argv(out):
+        return ["file", "jit_harness", "havoc", "-i",
+                '{"target": "cgc_like", "novelty": "throughput"}', "-m",
+                '{"seed": 11}', "-fb", "0", "-sf",
+                str(OUT / "sup_seed.bin"), "-o", str(out), "-b", "256",
+                "-n", "1024", "--corpus-dir", str(out / "corpus"),
+                "--trace", "65536"]
+
+    from killerbeez_tpu_torch.fuzzer.cli import main as cli_main
+    ctl = OUT / "sup_control"
+    shutil.rmtree(ctl, ignore_errors=True)
+    if cli_main(argv(ctl)) != 0:
+        raise AssertionError("the supervisor's control run failed")
+    out = OUT / "sup_out"
+    shutil.rmtree(out, ignore_errors=True)
+    spec = json.dumps({"faults": [{"point": "device_dispatch",
+                                   "mode": "raise", "hit": 3}]})
+    env = {k: v for k, v in os.environ.items() if k != "KBZ_CHAOS"}
+    t0 = time.perf_counter()
+    r = subprocess.run(
+        [sys.executable, "-m", "killerbeez_tpu_torch.resilience.supervisor",
+         "--backoff-base", "0.1", "--backoff-cap", "0.5", "--chaos", spec,
+         "--chaos-launches", "1", "--", *argv(out)],
+        cwd=str(ROOT), env=env, capture_output=True, text=True, timeout=400)
+    (OUT / "sup.log").write_text(r.stderr)
+    if r.returncode != 0:
+        raise AssertionError(f"kbz-supervise exited {r.returncode}:\n"
+                             f"{r.stderr[-3000:]}")
+    recs = [json.loads(line) for line in
+            (out / "supervisor.jsonl").read_text().splitlines()]
+    classes = [rec.get("class") for rec in recs if rec["event"] == "exit"]
+    probes = [rec["devices"] for rec in recs
+              if rec["event"] == "device_probe"]
+    if classes[-1:] != ["clean"] or "device_lost" not in classes \
+            or not probes or min(probes) < 1:
+        raise AssertionError(f"kbz-supervise: exits {classes}, probes "
+                             f"{probes}")
+    if findings(out) != findings(ctl):
+        raise AssertionError("kbz-supervise: the supervised campaign's "
+                             "findings differ from the control run's")
+    tools = {"kb-corpus": (corpus_tool.main, ["stats", str(out / "corpus")]),
+             "kb-timeline": (timeline_tool.main, [str(out)]),
+             "kb-stats": (stats_tui.main, [str(out), "--once"])}
+    for tool, (fn, args) in tools.items():
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            rc = fn(args)
+        (OUT / f"sup_{tool}.txt").write_text(buf.getvalue())
+        if rc != 0 or not buf.getvalue():
+            raise AssertionError(f"{tool} on the supervised output exited "
+                                 f"{rc}")
+    print(f"kbz-supervise on the card: exit 0 in "
+          f"{time.perf_counter() - t0:.1f} s; exits {classes}, device "
+          f"probes {probes}; findings == the control run's "
+          f"({len(findings(out)['new_paths'])} new paths, "
+          f"{len(findings(out)['crashes'])} crashes); kb-corpus, "
+          f"kb-timeline and kb-stats --once exit 0", flush=True)
+
+
 class Phases:
     """Prints each phase's wall time as the next one starts."""
 
@@ -2644,6 +2915,17 @@ def main() -> int:
     phases.start("12c (stateful flagships)")
     single_launches = stateful_flagships(card, seq_seeds)
 
+    # -- phase 13: the grammar tier and the zoo ------------------------
+    phases.start("13a (grammar_havoc_at card == CPU)")
+    zoo = zoo_files()
+    gh_ms = grammar_parity(card, zoo, vk, prng)
+    phases.start("13b (grammar CLI card == CPU)")
+    grammar_cli_parity(zoo)
+    phases.start("13c (grammar flagships)")
+    grammar_launches = grammar_flagships(card, zoo, gh_ms)
+    phases.start("13d (kbz-supervise, host tools)")
+    supervisor_run()
+
     # -- phase 9: the record -------------------------------------------
     phases.start("9 (record)")
     print(f"main-path launches: host-driven {launches}, -G 16 "
@@ -2652,7 +2934,7 @@ def main() -> int:
           f"{vm_all_launches}, ipt {ipt_launches}, edges {edges_launches}, "
           f"rare-edge {rare_launches}, mutators {mut_launches}, crack "
           f"{crack_launches}, stateful: none (phase 12's single-shot lane "
-          f"{single_launches}); over this "
+          f"{single_launches}), grammar {grammar_launches}; over this "
           f"whole run: {vk.LAUNCHES}, of which in its CLI runs "
           f"{CLI_LAUNCHES}",
           flush=True)
@@ -2664,6 +2946,7 @@ def main() -> int:
                  + ipt_launches["kbz_vm_kernel_all"]
                  + rare_launches["kbz_vm_kernel_all"]
                  + crack_launches["kbz_vm_kernel_all"]
+                 + grammar_launches["kbz_vm_kernel_all"]
                  + sum(m["kbz_vm_kernel_all"]
                        for m in mut_launches.values()))
     kernels = [

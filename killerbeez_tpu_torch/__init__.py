@@ -13,11 +13,12 @@ fall back to the CPU.
 
 Package map (the flagship fuzz loop, the CLI's default campaign, its
 device-resident generation loop, the mesh campaign, the trace surface,
-every mutator but grammar, the host-execution tier, the crack and
-search tier and the stateful session tier):
+every mutator, the host-execution tier, the crack and search tier, the
+stateful session tier, the grammar tier and the target zoo):
   utils/            logging, JSON option parsing, state serialization
   models/           the KBVM bytecode VM (plain torch engines, with the
-                    edge stream and the single-lane reference) + targets
+                    edge stream and the single-lane reference) + targets,
+                    and the generated target zoo (``zoo:`` names)
   ops/              PRNG, havoc, hashing, dense and sparse coverage
                     triage, the VM kernels, the device-resident
                     generation loop (-G)
@@ -27,8 +28,11 @@ search tier and the stateful session tier):
                     return_code and debug
   native/           the ctypes exec backend over the repository's
                     native/ sources, built into build/torch_native/
-  mutators/         every mutator but grammar (havoc fuses into the
-                    VM kernel; the rest run unfused)
+  mutators/         every mutator (havoc fuses into the VM kernel; the
+                    rest, grammar included, run unfused)
+  grammar/          grammar specs, the structure compiler, structured
+                    mutation in torch ops and auto-derivation
+  learn/            the provenance dataset (the model is not ported)
   drivers/          file, stdin, network_server, network_client
   corpus/           the corpus store and the seed schedulers
   analysis/         the block CFG, the static edge prior and the
@@ -38,11 +42,13 @@ search tier and the stateful session tier):
                     triage, the protocol analysis and per-message
                     dictionaries
   telemetry/        metrics registry, stats files, event log, span ring
-  resilience/       chaos points, checkpoints, the dispatch watchdog
+  resilience/       chaos points, checkpoints, the dispatch watchdog,
+                    the supervisor (kbz-supervise)
   parallel/         the mesh campaign (--mesh dp,mp)
   fuzzer/           the batched main loop (corpus feedback) + CLI
   tools/            tracer, showmap, merger, minimize, picker, kb-solve,
-                    kb-lint, kb-descend, and diagnostics run on the card
+                    kb-lint, kb-descend, kb-zoo, kb-corpus, kb-timeline,
+                    kb-stats, kb-fleet, and diagnostics run on the card
 """
 
 __version__ = "0.1.0"

@@ -7,9 +7,9 @@
     killed campaign where it stopped.
   * ``schedule.py`` — the seed-scheduling policy behind the loop's
     rotation: ``bandit`` (the default greedy-optimistic decay bandit
-    with splice) and ``rr`` (round-robin baseline).  The JAX
-    package's ``rare-edge`` policy comes with the edge signer it
-    needs.
+    with splice), ``rare-edge`` (FairFuzz-style rarity over the
+    corpus-wide edge hits, fed by the loop's edge signer) and ``rr``
+    (round-robin baseline).
 
 Both keep the JAX package's on-disk formats, so either package
 resumes the other's corpus.  Corpus sync, gossip and quarantine are
@@ -19,13 +19,13 @@ not ported yet.
 from __future__ import annotations
 
 from .schedule import (
-    Arm, BanditScheduler, RoundRobinScheduler,
+    Arm, BanditScheduler, RareEdgeScheduler, RoundRobinScheduler,
     SCHEDULERS, Scheduler, make_scheduler,
 )
 from .store import CorpusEntry, CorpusStore
 
 __all__ = [
     "Arm", "BanditScheduler", "CorpusEntry", "CorpusStore",
-    "RoundRobinScheduler", "SCHEDULERS",
+    "RareEdgeScheduler", "RoundRobinScheduler", "SCHEDULERS",
     "Scheduler", "make_scheduler",
 ]

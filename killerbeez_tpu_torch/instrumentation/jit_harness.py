@@ -24,6 +24,12 @@ device (the card included; any engine stands down to it, as the JAX
 package stands its Pallas engines down to xla), with a state x edge
 virgin map triaged beside the classic three.
 
+``{"grammar": spec}`` runs the grammar tier (grammar/): the spec
+compiles to tables once, and ``-G`` dispatches (the mesh's too) draw
+their candidates with ``grammar_havoc_at`` and run them through
+``kbz_vm_kernel`` over every lane; ``cuda_fused`` stands down to
+``cuda``, as the JAX package stands its Pallas engines down to xla.
+
 ``{"edges": 1}`` keeps lane 0's static-edge counts of each batch (a
 host copy started without a wait) for ``get_edges``, ``last_trace``,
 ``get_edge_pairs`` and the module API — the tracer, showmap and the
@@ -230,7 +236,7 @@ def _fused_fuzz_multi(instrs, edge_table, u_slots, seg_id, seed, base_key,
 
 # options of the reference whose machinery this package has not
 # ported yet: passing one (other than at its default) is an error
-_UNPORTED = ("learn", "grammar", "grammar_stage")
+_UNPORTED = ("learn",)
 
 ENGINES = ("torch", "cuda", "cuda_fused")
 
@@ -294,6 +300,17 @@ class JitHarnessInstrumentation(Instrumentation):
                     "else 16)",
         "state_reg": "stateful: the protocol-state register "
                      "(-1 = registered spec, else r7)",
+        "grammar": "structure-aware generation tier (grammar/): a "
+                   "grammar spec as JSON, @path, \"auto\" (derive "
+                   "from the target's static analysis) or "
+                   "\"degenerate\" (the parity anchor).  Compiled to "
+                   "tables once; -G and --mesh -G candidates come from "
+                   "grammar_havoc_at and run through the VM kernel "
+                   "(\"cuda_fused\" stands down to \"cuda\"); "
+                   "exclusive with learn",
+        "grammar_stage": "grammar: structured-lane probability "
+                         "numerator of 256 (default 128 = half the "
+                         "lanes run structured stages)",
         **{k: "not ported yet" for k in _UNPORTED},
     }
     DEFAULTS = {"novelty": "exact", "edges": 0, "phase1_steps": -1,
@@ -305,6 +322,10 @@ class JitHarnessInstrumentation(Instrumentation):
     def __init__(self, options: Optional[str] = None, device="cuda"):
         super().__init__(options)
         self.device = resolve_device(device)
+        if self.options["grammar"] and self.options["learn"]:
+            raise ValueError(
+                "grammar and learn are mutually exclusive — both tiers "
+                "would own the generation loop's mutation")
         for key in _UNPORTED:
             if self.options[key] != self.DEFAULTS[key]:
                 raise ValueError(f"jit_harness option {key!r} is not "
@@ -350,7 +371,32 @@ class JitHarnessInstrumentation(Instrumentation):
             raise ValueError(f'engine {self.engine!r} needs the CUDA '
                              'card (device "cuda"); the CPU runs '
                              'engine "torch"')
+        # -- grammar tier (grammar/) ----------------------------------
+        # the spec compiles to fixed-shape tables ONCE here, and goes
+        # to the device once; -G dispatches (and the mesh's) draw their
+        # candidates with grammar_havoc_at.  "auto" derives from the
+        # target's static analysis; "degenerate" compiles the
+        # parity-anchor tables (bit-identical to havoc)
+        self.grammar_tables = None
+        self._grammar_gt = None
+        if self.options["grammar"]:
+            from ..grammar import compile_grammar, derive_grammar
+            from ..grammar.spec import load_grammar
+            src = str(self.options["grammar"])
+            gspec = derive_grammar(prog) if src == "auto" \
+                else load_grammar(src)
+            self.grammar_tables = compile_grammar(
+                gspec, stage_p=int(self.options["grammar_stage"]))
+            if self.engine == "cuda_fused":
+                WARNING_MSG(
+                    "jit_harness: grammar-structured generations run "
+                    "the cuda engine — \"cuda_fused\" stands down (the "
+                    "fused kernel generates candidates in-kernel and "
+                    "cannot consume the structure tables)")
+                self.engine = "cuda"
+            self._grammar_gt = self.grammar_tables.device(self.device)
         self._fuse_warned = False
+        self._grammar_fuse_warned = False
         p1 = int(self.options["phase1_steps"])
         self.phase1_steps = auto_phase1_steps(prog.max_steps) \
             if p1 < 0 else p1
@@ -485,7 +531,9 @@ class JitHarnessInstrumentation(Instrumentation):
         with a fusable mutator (havoc) — the fused kernel consumes the
         mutator's OWN per-lane keys, so candidates and verdicts are
         bit-identical to the mutate-then-execute pipeline.  Sessions
-        never fuse: the fused kernel runs single-shot inputs only."""
+        never fuse: the fused kernel runs single-shot inputs only.  The
+        grammar mutator fuses only under an explicit ``cuda_fused``
+        (as plain havoc, with a warning)."""
         if self.stateful_spec is not None:
             return False
         fusable = getattr(mutator, "fused_spec", None) is not None
@@ -503,6 +551,19 @@ class JitHarnessInstrumentation(Instrumentation):
             # draws its own edit positions and would drop the mask, so
             # fusion stands down until the mask clears
             return False
+        if getattr(mutator, "grammar_tables", None) is not None:
+            # the grammar mutator's fused spec is plain havoc: the
+            # default cuda engine keeps its structure (grammar_havoc_at,
+            # then kbz_vm_kernel); an explicit cuda_fused fuses it as
+            # the JAX package's pallas_fused does, and says so
+            if self.engine != "cuda_fused":
+                return False
+            if not self._grammar_fuse_warned:
+                self._grammar_fuse_warned = True
+                WARNING_MSG(
+                    "jit_harness: engine \"cuda_fused\" fuses the "
+                    "grammar mutator as plain havoc — its structure "
+                    "stands down (use engine \"cuda\" to keep it)")
         return self.engine in ("cuda", "cuda_fused") and fusable
 
     def _fused_inputs(self, mutator, its):
@@ -647,7 +708,9 @@ class JitHarnessInstrumentation(Instrumentation):
             adm_cap=adm_cap, findings_cap=cap,
             stateful=None if spec is None else (
                 spec.m_max, spec.n_states, spec.state_reg),
-            vs=self.virgin_state)
+            vs=self.virgin_state,
+            grammar=None if self.grammar_tables is None else (
+                self.grammar_tables, self._grammar_gt))
         self.virgin_bits, self.virgin_crash, self.virgin_tmout = vb, vc, vh
         self.virgin_state = vs
         self._gen_ring = ring

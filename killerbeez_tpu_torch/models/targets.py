@@ -40,8 +40,11 @@ def target_names():
 
 def get_target(name: str) -> Program:
     if name.startswith("zoo:"):
-        raise ValueError(f"target {name!r}: the generated target zoo "
-                         "is not ported yet")
+        # generated target zoo (models/zoo.py): parameterized family
+        # instances with certified planted bugs, resolved by name so
+        # every --target consumer takes them unchanged
+        from .zoo import zoo_program
+        return zoo_program(name)
     if name not in _REGISTRY:
         raise ValueError(
             f"unknown target {name!r}; known: {', '.join(target_names())}")

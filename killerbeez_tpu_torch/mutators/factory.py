@@ -10,6 +10,7 @@ from .deterministic import (
     ArithmeticMutator, BitFlipMutator, DictionaryMutator,
     InterestingValueMutator, NopMutator,
 )
+from .grammar import GrammarMutator
 from .multipart import ManagerMutator
 from .radamsa import RadamsaMutator
 from .randomized import (
@@ -17,9 +18,6 @@ from .randomized import (
 )
 
 _REGISTRY: Dict[str, Type[Mutator]] = {}
-
-#: mutators of the JAX package that this package has not ported yet
-NOT_PORTED = ("grammar",)
 
 
 def register_mutator(cls: Type[Mutator]) -> Type[Mutator]:
@@ -30,7 +28,7 @@ def register_mutator(cls: Type[Mutator]) -> Type[Mutator]:
 for _cls in (NopMutator, BitFlipMutator, ArithmeticMutator,
              InterestingValueMutator, DictionaryMutator, HavocMutator,
              ZzufMutator, NiMutator, HonggfuzzMutator, SpliceMutator,
-             AflMutator, ManagerMutator, RadamsaMutator):
+             AflMutator, ManagerMutator, RadamsaMutator, GrammarMutator):
     register_mutator(_cls)
 
 
@@ -41,11 +39,9 @@ def mutator_names() -> list[str]:
 def mutator_factory(name: str, options: Optional[str] = None,
                     input_bytes: bytes = b"", device="cuda") -> Mutator:
     """Create a mutator by name on ``device``."""
-    if name in NOT_PORTED:
-        raise ValueError(f"mutator {name!r} is not ported yet")
     if name not in _REGISTRY:
         raise ValueError(
-            f"unknown mutator {name!r}; ported so far: "
+            f"unknown mutator {name!r}; known: "
             f"{', '.join(mutator_names())}")
     return _REGISTRY[name](options, input_bytes, device=device)
 

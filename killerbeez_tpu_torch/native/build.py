@@ -18,7 +18,7 @@ import fcntl
 import os
 import subprocess
 import threading
-from typing import Iterable, Set
+from typing import Iterable, Optional, Set
 
 _REPO_ROOT = os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))))
@@ -30,6 +30,8 @@ CORPUS_BUILD_DIR = os.path.join(BUILD_DIR, "corpus")
 _lock = threading.Lock()
 _native_built = False
 _corpus_built: Set[str] = set()
+# make's output of a failed build_native, kept by native_available
+_build_error: Optional[str] = None
 
 
 @contextlib.contextmanager
@@ -68,6 +70,28 @@ def build_native() -> None:
         if not _native_built:
             _make(["-C", NATIVE_DIR, f"BUILD={BUILD_DIR}"])
             _native_built = True
+
+
+def native_available() -> bool:
+    """True when ``build_native()`` succeeds.  A failure is kept, as in
+    the JAX package: later calls answer False at once and
+    ``build_error()`` gives the reason.  ``build_native`` itself still
+    raises for its callers."""
+    global _build_error
+    if _build_error is not None:
+        return False
+    try:
+        build_native()
+    except RuntimeError as e:
+        _build_error = str(e)
+        return False
+    return True
+
+
+def build_error() -> Optional[str]:
+    """Why the native build failed, or None when it succeeded."""
+    native_available()
+    return _build_error
 
 
 def build_corpus(names: Iterable[str]) -> None:

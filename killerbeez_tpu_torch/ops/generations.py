@@ -56,11 +56,14 @@ import numpy as np
 import torch
 
 from .. import FUZZ_NONE
+from ..grammar.device import grammar_from_ring
 from ..models.vm import _mix32
 from ..stateful.coverage import state_triage, state_triage_exact
 from ..stateful.session import _run_session_impl
 from .host_copy import HostCopy
-from .vm_kernel import compact_lanes, fuzz_batch_2phase, havoc_from_ring
+from .vm_kernel import (
+    compact_lanes, fuzz_batch_2phase, havoc_from_ring, run_batch,
+)
 
 #: default seed-slot ring size (slot 0 = pinned base seed)
 DEFAULT_RING_SLOTS = 32
@@ -328,7 +331,7 @@ def run_generations(instrs, edge_table, u_slots, seg_id, ring: RingState,
                     stack_pow2=4, g=1, phase1_steps=0, reseed=True,
                     adm_cap=DEFAULT_ADM_CAP,
                     findings_cap=DEFAULT_FINDINGS_CAP, stateful=None,
-                    vs=None, learn=False, grammar=False):
+                    vs=None, learn=False, grammar=None):
     """G generations, enqueued on the current stream with no host read.
     Returns ((vb, vc, vh, vs), ring', report fields) — the report
     fields in ``GenerationOutcome``'s order.
@@ -349,15 +352,22 @@ def run_generations(instrs, edge_table, u_slots, seg_id, ring: RingState,
     JAX package runs them in XLA); the state x edge map ``vs`` is
     triaged alongside the classic maps and the lane verdict becomes
     ``max(classic, state)``.  Without it ``vs`` is returned untouched.
-    The learn and grammar tiers are not ported: asking for one
-    raises."""
+
+    ``grammar`` (a compiled ``GrammarTables`` and its device tensors,
+    grammar/) runs the grammar tier: each generation's candidates come
+    from ``grammar_havoc_at`` on the ring's selected slot
+    (``grammar_from_ring``) and run through ``run_batch`` —
+    ``kbz_vm_kernel`` over every lane on the card, its plain version on
+    the CPU — as the JAX package's xla branch does; with stateful, the
+    session executor runs them instead.  Degenerate tables give
+    exactly the havoc lanes.  The learn tier is not ported: asking for
+    it raises."""
     from ..instrumentation.base import pack_verdicts
     from ..instrumentation.jit_harness import _judge
 
-    for tier, asked in (("learn", bool(learn)), ("grammar", bool(grammar))):
-        if asked:
-            raise ValueError(f"generations with the {tier} tier: the "
-                             f"{tier} tier is not ported yet")
+    if learn:
+        raise ValueError("generations with the learn tier: the learn "
+                         "tier is not ported yet")
     dev = its0.device
     b = its0.shape[0]
     L = ring.bufs.shape[1]
@@ -385,12 +395,21 @@ def run_generations(instrs, edge_table, u_slots, seg_id, ring: RingState,
         sel = _select_slot(ring.filled[:ring.slots], gen_id, salt) \
             if reseed else slot0
         its = (its0 + j * int(n_real)) & M32
-        if stateful is not None:
-            bufs, lens = havoc_from_ring(ring.bufs, ring.lens, sel,
-                                         base_key, its, stack_pow2)
-            res = _run_session_impl(instrs, edge_table, bufs, lens,
-                                    mem_size, max_steps, n_edges,
-                                    *stateful)
+        if grammar is not None or stateful is not None:
+            if grammar is not None:
+                bufs, lens = grammar_from_ring(ring.bufs, ring.lens, sel,
+                                               base_key, its, *grammar,
+                                               stack_pow2)
+            else:
+                bufs, lens = havoc_from_ring(ring.bufs, ring.lens, sel,
+                                             base_key, its, stack_pow2)
+            if stateful is not None:
+                res = _run_session_impl(instrs, edge_table, bufs, lens,
+                                        mem_size, max_steps, n_edges,
+                                        *stateful)
+            else:
+                res = run_batch(instrs, edge_table, bufs, lens, mem_size,
+                                max_steps, n_edges)
         else:
             res, bufs, lens = fuzz_batch_2phase(
                 instrs, edge_table, ring.bufs, ring.lens, sel, base_key,

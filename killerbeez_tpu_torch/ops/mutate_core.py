@@ -62,12 +62,13 @@ def _table(values, mask, device):
     return t
 
 
-def _havoc_one(buf, length, w, positions=None):
+def _havoc_one(buf, length, w, positions=None, mask=None):
     """One stacked havoc edit for every lane.
 
     buf int64[B, L] byte values, length int64[B], w int64[B, 8] uint32
-    words, ``positions`` an optional int64[P] focus byte set.  Returns
-    (buf', length').  Op table (AFL havoc mix): 0 bit flip, 1-3
+    words, ``positions`` an optional int64[P] focus byte set, ``mask``
+    an optional dense uint8 mask ([L] for every lane, or [B, L]).
+    Returns (buf', length').  Op table (AFL havoc mix): 0 bit flip, 1-3
     interesting 8/16/32, 4-9 arith +/- on 8/16/32, 10 xor byte, 11-12
     delete block, 13 insert clone/fill block, 14 overwrite clone/fill
     block — each expressed as
@@ -98,6 +99,29 @@ def _havoc_one(buf, length, w, positions=None):
         pos = torch.minimum(positions[w1 % n_pos], lim)
         bit = torch.minimum(positions[w7 % n_pos], lim) * 8 \
             + (w7 >> 16) % 8
+    elif mask is not None:
+        # dense per-byte mask (the grammar tier's mutable bytes, the
+        # learn tier's saliency): the primary edit position and the
+        # bit-flip byte are the k-th allowed byte of the live prefix for
+        # k = word % count.  An ALL-ONES mask is bit-identical to the
+        # unmasked draw (count == maxlen, the k-th allowed byte is byte
+        # k, and maxlen * 8 == max(length * 8, 1) for length >= 1); an
+        # all-zero mask falls back to uniform over the live prefix.
+        # Clone sources and block spans stay unrestricted, as in the
+        # ``positions`` focus variant.
+        live = torch.arange(L, device=dev)[None, :] < maxlen[:, None]
+        allowed = (mask != 0) & live
+        allowed = allowed | (~allowed.any(dim=1, keepdim=True) & live)
+        cs = allowed.to(torch.int64).cumsum(1)
+        cnt = cs[:, -1]
+
+        def rank(k):
+            # the first byte whose running count passes k (k < cnt)
+            return torch.searchsorted(cs, k[:, None], right=True)[:, 0]
+
+        pos = rank(w1 % cnt)
+        bk = w7 % (cnt * 8)
+        bit = rank(bk >> 3) * 8 + (bk & 7)
     delta = rint % ARITH_MAX + 1
     use_fill = (rint % 4) == 0
 
@@ -178,13 +202,14 @@ def _havoc_one(buf, length, w, positions=None):
 
 
 def havoc_at(buf: torch.Tensor, length, words: torch.Tensor,
-             stack_pow2: int = 4, positions=None):
+             stack_pow2: int = 4, positions=None, mask=None):
     """AFL-style havoc for every lane: ``buf`` uint8[L] (one seed,
     broadcast) or uint8[B, L], ``length`` int or int[B], ``words``
     [B, (2**stack_pow2 + 1) * 8] uint32 bits (int32 or int64 tensor).
     Lane b applies ``1 << (1 + words[b, 0] % stack_pow2)`` stacked
     edits.  ``positions`` (``havoc_focus_at``) anchors each edit on a
-    focus byte set.  Returns (uint8[B, L], int32[B])."""
+    focus byte set, ``mask`` (``havoc_mask_at``) on the set bytes of a
+    dense mask.  Returns (uint8[B, L], int32[B])."""
     n_steps = 1 << stack_pow2
     b = words.shape[0]
     w = words.to(torch.int64) & M32
@@ -202,7 +227,7 @@ def havoc_at(buf: torch.Tensor, length, words: torch.Tensor,
                                     device=dev)
     for i in range(n_steps):
         nb, nln = _havoc_one(out, ln, w[:, (i + 1) * 8:(i + 2) * 8],
-                             positions)
+                             positions, mask)
         active = i < stack
         out = torch.where(active[:, None], nb, out)
         ln = torch.where(active, nln, ln)
@@ -217,6 +242,16 @@ def havoc_focus_at(buf: torch.Tensor, length, words: torch.Tensor,
     draw per lane key); only the edit positions differ, so a campaign
     without a mask keeps its exact unfocused candidate stream."""
     return havoc_at(buf, length, words, stack_pow2, positions=positions)
+
+
+def havoc_mask_at(buf: torch.Tensor, length, words: torch.Tensor,
+                  mask: torch.Tensor, stack_pow2: int = 4):
+    """``havoc_at`` with edit positions drawn from the SET bytes of a
+    dense uint8 ``mask`` ([L] for every lane, or [B, L]), on the mask's
+    device.  The words are ``havoc_at``'s; with an all-ones mask every
+    edit is bit-identical to ``havoc_at``'s."""
+    return havoc_at(buf, length, words, stack_pow2,
+                    mask=mask.to(words.device))
 
 
 # --------------------------------------------------------------------

@@ -230,6 +230,9 @@ class ShardedCampaignDriver(Driver):
         seed, seed_len = self._seed()
         L = int(self.mutator.max_length)
         slots = max(int(instr.options.get("gen_ring_slots", 32)), 2)
+        # the grammar tables are compiled at instrumentation init, so
+        # they stay the same for the campaign's lifetime
+        grammar = getattr(instr, "grammar_tables", None)
         key = (L, slots)
         if self._gen_ring is not None and self._gen_ring_key == key:
             return
@@ -244,7 +247,8 @@ class ShardedCampaignDriver(Driver):
             instr.program, self.mesh, bpd, max_len=L,
             stack_pow2=int(self.mutator.options.get("stack_pow2", 4)),
             engine=instr.engine, seed=mseed, salt=mseed & 0xFFFFFFFF,
-            adm_cap=adm_cap, findings_cap=cap, stateful=self._stateful)
+            adm_cap=adm_cap, findings_cap=cap, stateful=self._stateful,
+            grammar=grammar)
         self._gen_ring = sharded_gen_ring_init(self.mesh, seed, seed_len,
                                                slots, L)
         self._gen_ring_key = key

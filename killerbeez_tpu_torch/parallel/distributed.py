@@ -46,6 +46,7 @@ from .. import FUZZ_CRASH, FUZZ_HANG, FUZZ_NONE, FUZZ_RUNNING, MAP_SIZE
 from ..instrumentation.base import pack_verdicts
 from ..models.vm import _run_batch_impl
 from ..ops.coverage import classify_counts, simplify_trace
+from ..grammar.device import grammar_from_ring
 from ..ops.generations import (
     DEFAULT_ADM_CAP, DEFAULT_FINDINGS_CAP, _ring_append_and_admit,
     _select_slot, new_ring,
@@ -261,11 +262,16 @@ class _ShardKernels:
     ``stateful`` (an ``(m_max, n_states, state_reg)`` tuple) runs the
     session tier: candidates execute as framed sequences through the
     session executor (plain torch, engine ``torch``) and
-    ``state_triage_row`` triages the state x edge map."""
+    ``state_triage_row`` triages the state x edge map.
+
+    ``grammar`` (a compiled ``GrammarTables``) runs the grammar tier:
+    candidates come from ``grammar_havoc_at`` (engine ``torch`` or
+    ``cuda``; the fused kernel cannot consume the tables), and the
+    degenerate tables give exactly the havoc lanes."""
 
     def __init__(self, program, mesh: Mesh, batch_per_device: int,
                  max_len: int, stack_pow2: int = 4, engine: str = "torch",
-                 seed: int = 0, stateful=None):
+                 seed: int = 0, stateful=None, grammar=None):
         n_mp = mesh.shape["mp"]
         if program.map_size % n_mp:
             raise ValueError("mp must divide the program's map size")
@@ -277,6 +283,12 @@ class _ShardKernels:
             raise ValueError(
                 "stateful mesh campaigns need the torch engine (the "
                 "session executor is the plain engine path)")
+        if grammar is not None and engine == "cuda_fused":
+            raise ValueError(
+                "grammar-structured mutation needs the torch or cuda "
+                "engine (the fused kernel generates candidates in-kernel "
+                "and cannot consume the structure tables)")
+        self.grammar = grammar
         self.program = program
         self.mesh = mesh
         self.batch_per_device = int(batch_per_device)
@@ -342,22 +354,28 @@ class _ShardKernels:
         them; returns (VMResult, bufs uint8[bpd, L], lens int32[bpd])
         on the row's device."""
         p = self.program
-        instrs, table = self.tables(self.mesh.row(d))
+        dev = self.mesh.row(d)
+        instrs, table = self.tables(dev)
         its = self.lanes(d)
-        if self.stateful is not None:
-            # session tier: the mutants are framed sequences and the
-            # result carries se_counts beside the classic fields
-            bufs, lens = havoc_from_ring(ring, ring_lens, sel, key, its,
-                                         self.stack_pow2)
-            return (_run_session_impl(instrs, table, bufs, lens,
-                                      p.mem_size, p.max_steps, p.n_edges,
-                                      *self.stateful), bufs, lens)
-        if self.engine == "cuda_fused":
+        if self.grammar is not None:
+            gt = self._const(("grammar", dev),
+                             lambda: self.grammar.device(dev))
+            bufs, lens = grammar_from_ring(ring, ring_lens, sel, key, its,
+                                           self.grammar, gt,
+                                           self.stack_pow2)
+        elif self.stateful is None and self.engine == "cuda_fused":
             return fuzz_batch(instrs, table, ring, ring_lens, sel, key, its,
                               p.mem_size, p.max_steps, p.n_edges,
                               self.stack_pow2)
-        bufs, lens = havoc_from_ring(ring, ring_lens, sel, key, its,
-                                     self.stack_pow2)
+        else:
+            bufs, lens = havoc_from_ring(ring, ring_lens, sel, key, its,
+                                         self.stack_pow2)
+        if self.stateful is not None:
+            # session tier: the mutants are framed sequences and the
+            # result carries se_counts beside the classic fields
+            return (_run_session_impl(instrs, table, bufs, lens,
+                                      p.mem_size, p.max_steps, p.n_edges,
+                                      *self.stateful), bufs, lens)
         run = run_batch if self.engine == "cuda" else _run_batch_impl
         return (run(instrs, table, bufs, lens, p.mem_size, p.max_steps,
                     p.n_edges), bufs, lens)
@@ -651,7 +669,7 @@ def make_sharded_generations(program, mesh: Mesh, batch_per_device: int,
                              salt: int = 0, adm_cap: int = DEFAULT_ADM_CAP,
                              findings_cap: int = DEFAULT_FINDINGS_CAP,
                              stateful=None, learn: bool = False,
-                             grammar: bool = False):
+                             grammar=None):
     """Build the mesh-resident generation dispatch: the single-chip
     generation loop (ops/generations.py) run per dp shard.
 
@@ -671,24 +689,28 @@ def make_sharded_generations(program, mesh: Mesh, batch_per_device: int,
     and the folded maps end identical.  Shard d's slot pick is salted
     with ``salt ^ d``; each pick lands in the ledger.
 
+    ``grammar`` (a compiled ``GrammarTables``) draws every shard's
+    candidates with ``grammar_havoc_at`` from its selected ring slot
+    (engine ``torch`` or ``cuda``: the candidates then run through
+    ``kbz_vm_kernel`` on the card), as the JAX mesh's xla engine does.
+
     Returns ``dispatch(state, ring, base_it, gen0, g, reseed,
     fold_every) -> (state', ring', rep)`` where ``rep`` is the 13 ring
     and ledger fields of ``MeshGenerationOutcome`` (leading dp axis, on
     ``devices[0][0]``).  Rings update in place; ``ring.filled`` is read
     as a copy.  Nothing in a dispatch waits for the card."""
-    for tier, asked, what in (
-            ("learn", learn, "learned mutation shaping"),
-            ("grammar", grammar, "grammar-structured mutation")):
-        if asked and engine != "torch":
-            raise ValueError(f"{what} needs the torch engine (the fused "
-                             "kernel generates candidates in-kernel)")
-        if asked:
-            raise ValueError(f"mesh generations with the {tier} tier: the "
-                             f"{tier} tier is not ported yet")
+    if learn and engine != "torch":
+        raise ValueError("learned mutation shaping needs the torch engine "
+                         "(the fused kernel generates candidates "
+                         "in-kernel)")
+    if learn:
+        raise ValueError("mesh generations with the learn tier: the learn "
+                         "tier is not ported yet")
     n_dp = mesh.shape["dp"]
     b = int(batch_per_device)
     kern = _ShardKernels(program, mesh, b, max_len, stack_pow2=stack_pow2,
-                         engine=engine, seed=seed, stateful=stateful)
+                         engine=engine, seed=seed, stateful=stateful,
+                         grammar=grammar)
     F = int(findings_cap)
     A = max(int(adm_cap), 1)
     salt = int(salt) & M32

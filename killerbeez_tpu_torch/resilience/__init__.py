@@ -14,10 +14,16 @@ brought to the CUDA tier.
                         scheduler/campaign state, event seq and
                         component states, so a kill at any instruction
                         resumes consistent.
+  * ``supervisor.py`` — ``kbz-supervise``: runs the fuzz loop as a
+                        child, classifies exits (clean / crash /
+                        device-lost / watchdog-kill) and restarts
+                        into ``--resume`` with capped exponential
+                        backoff, re-probing the CUDA cards on device
+                        loss and shrinking the mesh when cards stay
+                        dead.
 
-The supervisor (``kbz-supervise``) and the fleet chaos rig are not
-ported yet (the JAX package's supervisor probes JAX devices); the exit
-codes and the checkpoint format are the same in both packages.
+The fleet chaos rig is not ported yet; the exit codes and the
+checkpoint format are the same in both packages.
 
 Exit-code contract between the loop and a supervisor (clear of the
 CLI's 0/1/2 usage codes and shells' 126+ conventions):

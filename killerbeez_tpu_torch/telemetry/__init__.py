@@ -6,7 +6,9 @@ package gives the port the AFL ecosystem's signals instead: a
 process-local metrics registry with stage timers (metrics.py),
 periodic AFL-compatible ``fuzzer_stats`` / ``plot_data`` /
 ``stats.jsonl`` writers (sink.py), an associative snapshot merge
-(aggregate.py) for the (dp, mp) mesh campaign's per-shard fold, and
+(aggregate.py) for the (dp, mp) mesh campaign's per-shard fold, the
+Prometheus / OpenMetrics text exposition of a snapshot
+(openmetrics.py, kb-stats ``--openmetrics``), and
 — the flight recorder — a
 bounded ring-buffer span tracer with Chrome trace-event export
 (trace.py) plus a typed append-only campaign event log (events.py).
@@ -38,6 +40,7 @@ from .metrics import (
     EmaRate, Histogram, MetricsRegistry, StageTimer, STAGES,
     percentiles_from_counts,
 )
+from .openmetrics import render_snapshot as render_openmetrics
 from .sink import StatsSink, parse_fuzzer_stats, read_latest_snapshot
 from .trace import TraceRecorder, load_chrome_trace
 
@@ -48,6 +51,7 @@ __all__ = [
     "last_event_seq", "load_chrome_trace", "merge", "merge_events",
     "merge_health", "merge_two", "parse_fuzzer_stats",
     "percentiles_from_counts", "read_events", "read_latest_snapshot",
+    "render_openmetrics",
 ]
 
 #: event types whose emission stamps an AFL find-recency gauge (the

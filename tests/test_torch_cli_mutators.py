@@ -1,5 +1,6 @@
 """The port's CLI against the JAX package's for every mutator but
-grammar, on ``tlvstack_vm`` at ``-b 64``: the same md5 sets under
+grammar (``test_torch_grammar_campaigns.py`` has its CLI runs), on
+``tlvstack_vm`` at ``-b 64``: the same md5 sets under
 crashes/, hangs/ and new_paths/ and the same ``-isd`` and ``-msd``
 state strings, with every finite walk run to exhaustion (``-n -1``,
 exit 0, its last batch clamped to what is left and padded as the JAX
@@ -163,10 +164,16 @@ def test_generations_stand_down_and_mesh_refuses(tmp_path, capfd):
 
 
 def test_grammar_is_refused(tmp_path, capsys):
-    argv = ["file", "jit_harness", "grammar", "-ss", "ABCD", "--device",
-            "cpu", "-i", '{"target": "test"}', "-o", str(tmp_path)]
-    assert main(argv) == 2
-    assert "not ported yet" in capsys.readouterr().err
+    """The grammar mutator is ported; what both CLIs refuse is an
+    ``auto`` grammar without the target to derive it from."""
+    errors = []
+    for fn, extra in ((jax_main, []), (main, ["--device", "cpu"])):
+        argv = ["file", "jit_harness", "grammar", "-ss", "ABCD", "-i",
+                '{"target": "test"}', "-m", '{"grammar": "auto"}', "-o",
+                str(tmp_path / str(len(errors))), *extra]
+        assert fn(argv) == 2
+        errors.append(capsys.readouterr().err.strip().splitlines()[-1])
+    assert errors[0] == errors[1] and "needs a target name" in errors[0]
 
 
 @pytest.mark.parametrize("mutator,mopts,seed", [

@@ -727,3 +727,84 @@ def test_stateful_generations_on_the_card_equal_the_cpu(cuda):
         if hasattr(a, "shape"):
             assert (a == b).all(), f
     assert torch.equal(instr.virgin_state.cpu(), twin.virgin_state)
+
+
+GRAMMAR_TARGETS = ["zoo:tlv:depth=2,bug=1", "zoo:chain:width=3,bug=1",
+                   "zoo:cksum:style=sum,bug=1"]
+
+
+@pytest.mark.parametrize("name", GRAMMAR_TARGETS + ["degenerate"])
+def test_grammar_havoc_at_on_the_card_equals_the_cpu(name, cuda):
+    """grammar_havoc_at on 8192 lanes gives the same bytes and lengths
+    on the card as on the CPU; with the degenerate tables it is
+    havoc_at on the card."""
+    from killerbeez_tpu_torch.grammar import compile_grammar
+    from killerbeez_tpu_torch.grammar.device import grammar_havoc_at
+    from killerbeez_tpu_torch.grammar.tables import degenerate_tables
+    from killerbeez_tpu_torch.models.zoo import build_zoo
+    from killerbeez_tpu_torch.ops.mutate_core import havoc_at
+    if name == "degenerate":
+        tables, sb = degenerate_tables(), targets_cgc.tlvstack_vm_seed()
+    else:
+        t = build_zoo(name)
+        tables, sb = compile_grammar(t.grammar), t.seed
+    seed = torch.zeros(64, dtype=torch.uint8)
+    seed[:len(sb)] = torch.tensor(list(sb), dtype=torch.uint8)
+    its = torch.arange(8192, dtype=torch.int64)
+    outs = []
+    for dev in (cuda, torch.device("cpu")):
+        keys = prng.fold_in(prng.key(7, device=dev), its.to(dev))
+        outs.append(grammar_havoc_at(seed.to(dev), len(sb), keys, tables,
+                                     tables.device(dev)))
+    _equal(outs[0], outs[1])
+    if name == "degenerate":
+        keys = prng.fold_in(prng.key(7, device=cuda), its.to(cuda))
+        _equal(outs[0], havoc_at(seed.to(cuda), len(sb),
+                                 vk.havoc_words_for_keys(keys)))
+
+
+def test_grammar_generations_dispatch_never_waits_for_the_card(cuda):
+    """A grammar -G 4 dispatch on the card (engine cuda): each
+    generation draws its lanes with grammar_havoc_at from the ring's
+    selected slot and runs them through kbz_vm_kernel over every lane,
+    enqueueing work only (a host sync raises under sync debug mode
+    "error"); the outcome equals the CPU's."""
+    import json
+    from killerbeez_tpu_torch.drivers.factory import driver_factory
+    from killerbeez_tpu_torch.instrumentation.jit_harness import (
+        JitHarnessInstrumentation,
+    )
+    from killerbeez_tpu_torch.models.zoo import build_zoo
+    from killerbeez_tpu_torch.mutators.randomized import HavocMutator
+    t = build_zoo("zoo:tlv:depth=2,bug=1")
+    iopts = json.dumps({"target": t.name, "novelty": "throughput",
+                        "grammar": t.grammar.to_json()})
+    outs = []
+    for dev in ("cuda", "cpu"):
+        instr = JitHarnessInstrumentation(iopts, device=dev)
+        mut = HavocMutator('{"seed": 7}', t.seed, device=dev)
+        drv = driver_factory("file", None, instr, mut, device=dev)
+        first = drv.test_batch_generations(2048, 4).materialize()
+        if dev == "cuda":
+            torch.cuda.synchronize()
+            before = dict(vk.LAUNCHES)
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                out = drv.test_batch_generations(2048, 4).prefetch()
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+            assert vk.LAUNCHES["kbz_vm_kernel_all"] == \
+                before["kbz_vm_kernel_all"] + 4
+            assert vk.LAUNCHES["kbz_fuzz_kernel"] == \
+                before["kbz_fuzz_kernel"]
+        else:
+            out = drv.test_batch_generations(2048, 4)
+        outs.append((first, out.materialize(), instr))
+    for a, b in zip(outs[0][:2], outs[1][:2]):
+        for f in a._fields:
+            x, y = getattr(a, f), getattr(b, f)
+            if hasattr(x, "shape"):
+                assert (x == y).all(), f
+    assert torch.equal(outs[0][2].virgin_bits.cpu(),
+                       outs[1][2].virgin_bits)
+    assert int(outs[0][1].fr_ptr) > 0

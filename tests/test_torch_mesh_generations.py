@@ -143,14 +143,21 @@ def test_dispatch_matches_jax(shape, engine, jax_dispatches):
 
 
 def test_tiers_not_ported_are_refused():
+    """learn is refused; the grammar tier (ported) takes the torch and
+    cuda engines, never the fused kernel; sessions take torch."""
+    from killerbeez_tpu_torch.grammar.tables import degenerate_tables
     prog = get_target("cgc_like")
     mesh = make_mesh(1, 1, ["cpu"])
     with pytest.raises(ValueError, match="needs the torch engine"):
         make_sharded_generations(prog, mesh, 8, 16, engine="cuda_fused",
                                  learn=True)
-    for tier in ("learn", "grammar"):
-        with pytest.raises(ValueError, match="not ported yet"):
-            make_sharded_generations(prog, mesh, 8, 16, **{tier: True})
+    with pytest.raises(ValueError, match="not ported yet"):
+        make_sharded_generations(prog, mesh, 8, 16, learn=True)
+    with pytest.raises(ValueError, match="torch or cuda engine"):
+        make_sharded_generations(prog, mesh, 8, 16, engine="cuda_fused",
+                                 grammar=degenerate_tables())
+    make_sharded_generations(prog, mesh, 8, 16,
+                             grammar=degenerate_tables())
     with pytest.raises(ValueError, match="stateful mesh campaigns need "
                        "the torch engine"):
         make_sharded_generations(prog, mesh, 8, 16, engine="cuda_fused",

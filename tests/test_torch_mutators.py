@@ -1,12 +1,13 @@
 """The port's mutator classes against the JAX package's, bit for bit:
-every mutator but grammar makes the same candidate bytes and lengths
+every mutator but grammar (``test_torch_grammar.py`` holds its
+structured mutation to JAX's) makes the same candidate bytes and lengths
 batch by batch over (and past the stage boundaries of) its walk, a
 batch equals its candidates made one at a time, the totals, set_input
 (with and without keep_length) and the state strings agree, and each
 package loads the other's state; manager's parts through
 mutate_extended, the radamsa wrapper over a fake binary, focus masks
-(``set_focus_mask``), and the refusals (grammar, a card asked for
-without one)."""
+(``set_focus_mask``), the registry (grammar included), and the
+refusals (a card asked for without one)."""
 
 import json
 import sys
@@ -274,15 +275,15 @@ def test_radamsa_gate_matches_jax(monkeypatch, tmp_path):
 
 
 def test_registry_is_the_jax_one_but_grammar():
-    assert mutator_names() == sorted(set(jax_names()) - {"grammar"})
-    with pytest.raises(ValueError, match="not ported yet"):
-        mutator_factory("grammar", None, SEED, device="cpu")
+    """The registry is the JAX package's, grammar now included."""
+    assert mutator_names() == sorted(jax_names())
+    assert mutator_factory("grammar", None, SEED, device="cpu").name == \
+        "grammar"
     with pytest.raises(ValueError, match="unknown mutator"):
         mutator_factory("nosuch", None, SEED, device="cpu")
     text = mutator_help()
     for name in mutator_names():
         assert f"{name} mutator" in text
-    assert "grammar mutator" not in text
 
 
 ALL = MUTATORS + [("manager", {"mutators": ["bit_flip", "havoc"]})]
