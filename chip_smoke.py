@@ -203,14 +203,41 @@ It builds the CUDA kernels from ``killerbeez_tpu_torch/csrc`` and:
      with one injected device loss: exit 0, a clean last exit, findings
      equal to a fault-free control run, then kb-corpus, kb-timeline and
      kb-stats ``--once`` on its output;
+  14. (run before the record) the learn tier and the fleet: (a) the
+     byte-saliency model on the card against the CPU from one seeded
+     label buffer (32 seeds of 64 bytes): version-0 logits exactly 0
+     and all-ones masks, two ``train_round``s (8 steps x 256 samples)
+     with parameters and logits within LEARN_TOL, masks equal where
+     every logit is LEARN_MARGIN clear of 0 (asserted), their ms and
+     ``masked_saliency``'s; ``havoc_mask_at`` on 65536 lanes card ==
+     CPU for an all-ones mask (== ``havoc_at``), a random and an
+     all-zero mask, timed; (b) ``run_batch_generations`` with the learn
+     tier card == CPU (1000 lanes padded to 1024, G = 4, reseeding on
+     and off, version-0 and carried trained weights), then the CLI
+     with a learn tier that never trains: ``-G 4`` card == CPU == the
+     run without ``--learn``, host-driven at ``PIPELINE_DEPTH = 1``,
+     and ``--mesh 1,1 -G 4`` card == CPU; (c) the flagship at ``-G 16``
+     for 96 batches with ``--learn --learn-interval 0.5`` (masked havoc
+     feeding ``kbz_vm_kernel`` over every lane) in turns with the same
+     run without ``--learn``, with the gate that the model trained, and
+     ``--resume`` restoring the model version; (d) a manager in this
+     process, two jobs of the flagship, and beside each a CLI at the
+     flagship width syncing and gossiping under the job's campaign
+     key, then two concurrent worker subprocesses with gossip claiming
+     the jobs: both jobs done, rows of both workers and both CLIs in
+     the manager's corpus, each worker pulling its CLI's entries,
+     heartbeats, findings assimilated, ``/metrics`` with
+     ``kbz_manager_degraded``, and each process's kernel launches
+     printed on a line of their own;
   9. prints one ``{"kernels": [...]}`` line (launches: the first
      host-driven, the first ``-G 16``, the first mesh, the first edges,
      the first rare-edge, the first crack flagship and the first
      single-shot run of phase 12c together;
      the all-lanes ``kbz_vm_kernel`` row from the mesh's cuda-engine
      run, the unfiltered ``ipt`` run, the rare-edge run's signer, phase
-     8c's afl, zzuf and honggfuzz runs, the first crack flagship run
-     and phase 13c's structured and grammar-mutator runs), then the
+     8c's afl, zzuf and honggfuzz runs, the first crack flagship run,
+     phase 13c's structured and grammar-mutator runs and phase 14c's
+     learn runs), then the
      card line, then the result line ``{"ok": true, "device": {...}}``
      last.  Each phase's wall
      time is printed as it ends.
@@ -238,6 +265,7 @@ import json
 import os
 import re
 import shutil
+import signal
 import statistics
 import subprocess
 import sys
@@ -2499,6 +2527,516 @@ def supervisor_run():
           f"kb-timeline and kb-stats --once exit 0", flush=True)
 
 
+# -- the learn tier and the fleet (phase 14) -----------------------------
+
+LEARN_L = 64
+LEARN_SEEDS = 32
+#: card against CPU after training: parameters and logits may differ by
+#: float32 rounding (reduction order), at most this much
+LEARN_TOL = 1e-5
+#: masks are compared only where every logit lies at least this far
+#: from the threshold 0 (asserted; the run fails, never skips)
+LEARN_MARGIN = 1e-4
+#: the learn flagship: six -G 16 dispatches of B lanes
+LEARN_BATCHES = 96
+#: a learn tier that never trains (the version-0 regime): the training
+#: clock reads wall time, so only an interval past it keeps it off
+LEARN_OFF = ["--learn", "--learn-interval", "1e12"]
+#: each fleet CLI's length, in batches of B lanes
+FLEET_BATCHES = 128
+#: each fleet job's length in execs, at the CLI's default batch
+FLEET_JOB_EXECS = 1 << 20
+
+
+def learn_tiers():
+    """A LearnTier on the card and one on the CPU, fed the same seeded
+    synthetic admissions: LEARN_SEEDS seeds of LEARN_L random bytes, four
+    admitted children each, every child flipping one to three of its
+    parent's first 16 bytes.  Returns (seeds, {device: tier})."""
+    import numpy as np
+    from killerbeez_tpu_torch.learn import LearnTier
+    rng = np.random.default_rng(MUT_SEED)
+    seeds = [rng.integers(0, 256, LEARN_L, dtype=np.uint8).tobytes()
+             for _ in range(LEARN_SEEDS)]
+    adm = []
+    for i, s in enumerate(seeds):
+        for _ in range(4):
+            c = bytearray(s)
+            for p in rng.choice(16, size=int(rng.integers(1, 4)),
+                                replace=False):
+                c[p] ^= int(rng.integers(1, 256))
+            adm.append((f"s{i}", s, bytes(c)))
+    tiers = {}
+    for dev in ("cuda", "cpu"):
+        t = LearnTier(train_interval_s=0.0, min_labels=16, device=dev)
+        for key, p, c in adm:
+            t.note_admission(key, p, c, "havoc")
+        tiers[dev] = t
+    return seeds, tiers
+
+
+def learn_logits(params, seeds, dev):
+    """Each seed's saliency logits under ``params`` on ``dev``: float32
+    [len(seeds), LEARN_L] on the CPU."""
+    from killerbeez_tpu_torch.learn import model
+    return torch.stack([model.saliency_logits(
+        params, torch.tensor(list(s), dtype=torch.uint8, device=dev),
+        len(s)).cpu() for s in seeds])
+
+
+def learn_masks_compared(cuda_logits, cpu_logits, lens, what):
+    """Card and CPU logits within LEARN_TOL, no compared logit within
+    LEARN_MARGIN of 0, then the quantized masks equal.  Returns (max abs
+    logit difference, the smallest |logit|)."""
+    from killerbeez_tpu_torch.learn import model
+    diff = float((cuda_logits - cpu_logits).abs().max())
+    if diff > LEARN_TOL:
+        raise AssertionError(f"{what}: card and CPU logits differ by "
+                             f"{diff} > {LEARN_TOL}")
+    live = torch.arange(cpu_logits.shape[1])[None, :] < \
+        torch.as_tensor(lens)[:, None]
+    near = float(cpu_logits.abs()[live].min())
+    if near < LEARN_MARGIN:
+        raise AssertionError(f"{what}: a logit lies {near} from the mask "
+                             f"threshold, inside the margin {LEARN_MARGIN}")
+    for a, b, n in zip(cuda_logits, cpu_logits, lens):
+        if not torch.equal(model.quantize_mask(a, n),
+                           model.quantize_mask(b, n)):
+            raise AssertionError(f"{what}: card and CPU masks differ")
+    return diff, near
+
+
+def learn_model_parity(card, vk, prng):
+    """14a: the model on the card against the CPU: version-0 logits
+    exactly 0.0 and all-ones masks; two train_rounds (8 SGD steps x 256
+    samples each) from the same label buffer, parameters within
+    LEARN_TOL, and each round's ms (the first pays the warm-up); logits
+    and masks under the trained weights; havoc_mask_at on B lanes card
+    == CPU for an all-ones mask (== havoc_at), a random mask and an
+    all-zero mask (the uniform fallback), with its event-span ms.
+    Returns (the CPU tier, the timings)."""
+    from killerbeez_tpu_torch.ops.mutate_core import havoc_at, havoc_mask_at
+    from killerbeez_tpu_torch.tools.timing import timed
+    seeds, tiers = learn_tiers()
+    lens = [len(s) for s in seeds]
+    v0 = learn_logits(tiers["cuda"].params, seeds, "cuda")
+    if float(v0.abs().max()) != 0.0:
+        raise AssertionError("a version-0 model's logits are not exactly 0")
+    from killerbeez_tpu_torch.learn import model
+    if not all(bool((model.quantize_mask(v, n) == 1).all())
+               for v, n in zip(v0, lens)):
+        raise AssertionError("a version-0 mask is not all-ones")
+    train_ms, p_err = [], 0.0
+    for _ in range(2):            # the first round pays the warm-up
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss_card = tiers["cuda"].train_round()
+        train_ms.append((time.perf_counter() - t0) * 1e3)
+        loss_cpu = tiers["cpu"].train_round()
+        p_err = max([p_err] + [float((a.cpu() - b).abs().max()) for a, b in
+                               zip(tiers["cuda"].params,
+                                   tiers["cpu"].params)])
+        if p_err > LEARN_TOL:
+            raise AssertionError(f"train_round: card and CPU parameters "
+                                 f"differ by {p_err} > {LEARN_TOL}")
+    l_err, near = learn_masks_compared(
+        learn_logits(tiers["cuda"].params, seeds, "cuda"),
+        learn_logits(tiers["cpu"].params, seeds, "cpu"), lens,
+        "trained model")
+    # one inference step of the generation loop at the flagship width
+    sb = torch.tensor(list(seeds[0]), dtype=torch.uint8, device="cuda")
+    infer_ms = timed(lambda: model.masked_saliency(tiers["cuda"].params,
+                                                   sb, LEARN_L), 7)
+    its = torch.arange(B, dtype=torch.int64)
+    gen = torch.Generator().manual_seed(MUT_SEED)
+    masks = {"ones": torch.ones(LEARN_L, dtype=torch.uint8),
+             "random": torch.randint(0, 2, (LEARN_L,), dtype=torch.uint8,
+                                     generator=gen),
+             "zeros": torch.zeros(LEARN_L, dtype=torch.uint8)}
+    seed = torch.tensor(list(seeds[0]), dtype=torch.uint8)
+    mask_ms = {}
+    for name, mask in masks.items():
+        outs = []
+        for dev in ("cuda", "cpu"):
+            words = vk.havoc_words_for_keys(
+                prng.fold_in(prng.key(MUT_SEED, device=dev), its.to(dev)))
+            outs.append(havoc_mask_at(seed.to(dev), LEARN_L, words,
+                                      mask.to(dev)))
+        err = max_abs_err([t.cpu() for t in outs[0]], outs[1])
+        if name == "ones":
+            words = vk.havoc_words_for_keys(prng.fold_in(
+                prng.key(MUT_SEED, device="cuda"), its.cuda()))
+            err = max(err, max_abs_err(outs[0],
+                                       havoc_at(seed.cuda(), LEARN_L, words)))
+        if err:
+            raise AssertionError(f"havoc_mask_at ({name} mask): card != CPU "
+                                 f"or all-ones != havoc_at (max_abs_err "
+                                 f"{err})")
+        words = vk.havoc_words_for_keys(prng.fold_in(
+            prng.key(MUT_SEED, device="cuda"), its.cuda()))
+        m = mask.cuda()
+        mask_ms[name] = timed(lambda: havoc_mask_at(seed.cuda(), LEARN_L,
+                                                    words, m), 5)
+    print(f"learn model [{card}]: v0 logits exactly 0 and masks all-ones "
+          f"on the card; train_round (8 steps x 256 samples) card "
+          f"{train_ms[0]:.1f} ms wall cold, {train_ms[1]:.1f} ms warm (loss "
+          f"{loss_card:.5f}, CPU {loss_cpu:.5f}), parameters "
+          f"within {p_err:.3g}; trained logits within {l_err:.3g}, smallest "
+          f"|logit| {near:.3g}, masks equal over {len(seeds)} seeds; "
+          f"masked_saliency at L = {LEARN_L} {infer_ms:.3f} ms event span; "
+          f"havoc_mask_at ({B} lanes) card == CPU, all-ones == havoc_at, "
+          f"event span " + ", ".join(f"{k} {v:.3f} ms"
+                                     for k, v in mask_ms.items()),
+          flush=True)
+    return tiers["cpu"], {"train_round_ms": train_ms[1],
+                          "infer_ms": infer_ms,
+                          "havoc_mask_at_ms": mask_ms}
+
+
+def learn_dispatch_parity(cpu_tier):
+    """14b: run_batch_generations with the learn tier, card (engine cuda)
+    against the CPU's plain path on tlvstack_vm: 1000 lanes padded to
+    1024, G = 4, reseeding on and off, with version-0 weights and with
+    the CPU tier's trained weights carried to the card; every outcome
+    field, the final ring and the virgin maps equal.  With trained
+    weights every slot the dispatch could select (the seed and each
+    admitted row of the ledger) is held to LEARN_MARGIN first."""
+    from killerbeez_tpu_torch.instrumentation.jit_harness import (
+        JitHarnessInstrumentation,
+    )
+    from killerbeez_tpu_torch.learn import model
+    from killerbeez_tpu_torch.models.targets_cgc import tlvstack_vm_seed
+    from killerbeez_tpu_torch.mutators.randomized import HavocMutator
+    trained = [p.cpu().numpy() for p in cpu_tier.params]
+    for weights in ("v0", "trained"):
+        for reseed in (True, False):
+            got = {}
+            for dev, engine in (("cuda", "cuda"), ("cpu", "torch")):
+                instr = JitHarnessInstrumentation(json.dumps(
+                    {**GEN_IOPTS, "engine": engine, "learn": 1}), device=dev)
+                instr.learn_params = (
+                    model.init_params(device=dev) if weights == "v0"
+                    else model.params_from_numpy(trained, dev))
+                mut = HavocMutator(json.dumps({"seed": MUT_SEED}),
+                                   tlvstack_vm_seed(), device=dev)
+                out = instr.run_batch_generations(
+                    mut, mut.peek_iterations(1000), 4, pad_to=1024,
+                    reseed=reseed).materialize()
+                got[dev] = (out, [t.cpu() for t in instr._gen_ring.view()],
+                            [getattr(instr, m).cpu() for m in MAPS])
+            (co, c_ring, c_maps), (po, p_ring, p_maps) = got["cuda"], got["cpu"]
+            if weights == "trained":
+                rows = [tlvstack_vm_seed()] + [
+                    bytes(po.adm_bufs[j, a, :int(po.adm_len[j, a])])
+                    for j in range(po.adm_valid.shape[0])
+                    for a in range(po.adm_valid.shape[1])
+                    if po.adm_valid[j, a]]
+                params = model.params_from_numpy(trained)
+                for r in rows:
+                    lg = model.saliency_logits(params, torch.tensor(
+                        list(r) + [0] * (LEARN_L - len(r)),
+                        dtype=torch.uint8), len(r))[:len(r)]
+                    if float(lg.abs().min()) < LEARN_MARGIN:
+                        raise AssertionError(
+                            "learn dispatch: a selectable slot's logit "
+                            "lies inside the margin")
+            for f in co._fields:
+                a, b = getattr(co, f), getattr(po, f)
+                if not (a == b if isinstance(a, int)
+                        else (a.shape == b.shape and (a == b).all())):
+                    raise AssertionError(f"learn -G dispatch ({weights}, "
+                                         f"reseed {reseed}): card and CPU "
+                                         f"differ in {f}")
+            for name, a, b in zip(("ring",) * 6 + MAPS, c_ring + c_maps,
+                                  p_ring + p_maps):
+                if not torch.equal(a, b):
+                    raise AssertionError(f"learn -G dispatch ({weights}): "
+                                         f"card and CPU differ in {name}")
+            print(f"learn -G dispatch parity ({weights} weights, reseed "
+                  f"{reseed}): card == CPU over 4 generations (findings "
+                  f"ring {int(co.fr_ptr)} rows, ring filled "
+                  f"{int(co.ring_filled.sum())})", flush=True)
+
+
+def learn_cli_parity():
+    """14b: the CLI with a learn tier that never trains (LEARN_OFF): at
+    -G 4 -b 1024 -n 32768 card (engine cuda_fused asked: it stands down
+    to cuda) against the CPU and against the same run without --learn;
+    host-driven at the default -fb with PIPELINE_DEPTH = 1 (-n 16384:
+    two rotations) card against CPU; --mesh 1,1 -G 4 (-n 16384) card
+    against CPU.  md5 sets, -isd, ring_admit
+    sequences and fuzzer_stats counters equal."""
+    small = ["-b", "1024", "-n", "32768", "-G", "4"]
+    got = {}
+    for name, dev, engine, extra in (
+            ("learn_gen_cuda", "cuda", "cuda_fused", LEARN_OFF),
+            ("learn_gen_cpu", "cpu", "torch", LEARN_OFF),
+            ("learn_gen_plain", "cuda", "cuda_fused", []),
+            ("learn_mesh_cuda", "cuda", "cuda", LEARN_OFF
+             + ["--mesh", "1,1", "-n", "16384"]),
+            ("learn_mesh_cpu", "cpu", "torch", LEARN_OFF
+             + ["--mesh", "1,1", "-n", "16384"])):
+        state = OUT / f"{name}.isd"
+        _, out = run_cli(small + extra + [
+            "--device", dev, "-isd", str(state), "-i",
+            json.dumps({**GEN_IOPTS, "engine": engine})], name)
+        got[name] = {"findings": findings(out), "isd": state.read_text(),
+                     "admits": ring_admits(out),
+                     "counters": stats_counters(out)}
+    for a, b in (("learn_gen_cuda", "learn_gen_cpu"),
+                 ("learn_gen_cuda", "learn_gen_plain"),
+                 ("learn_mesh_cuda", "learn_mesh_cpu")):
+        if got[a] != got[b]:
+            raise AssertionError(f"{a} and {b} differ in "
+                                 f"{[k for k in got[a] if got[a][k] != got[b][k]]}")
+    if not got["learn_gen_cuda"]["admits"]:
+        raise AssertionError("learn -G 4 admitted no ring slot")
+    host = {}
+    for dev, engine in (("cuda", "cuda_fused"), ("cpu", "torch")):
+        host[dev] = inprocess(
+            OUT / f"learn_host_{dev}", "-b", "1024", "-n", "16384",
+            "--device", dev, *LEARN_OFF, "-i",
+            json.dumps({**GEN_IOPTS, "engine": engine}))
+    if host["cuda"] != host["cpu"]:
+        raise AssertionError("host-driven --learn: card and CPU differ in "
+                             f"{[k for k in host['cuda'] if host['cuda'][k] != host['cpu'][k]]}")
+    print(f"learn CLI parity: -G 4 card == CPU == the run without --learn "
+          f"({len(got['learn_gen_cuda']['admits'])} ring admissions, "
+          f"{len(got['learn_gen_cuda']['findings']['new_paths'])} new "
+          f"paths); host-driven default -fb card == CPU "
+          f"({len(host['cuda']['picks'])} picks); --mesh 1,1 -G 4 card == "
+          f"CPU", flush=True)
+
+
+def learn_flagships(card):
+    """14c: tlvstack_vm at -b 65536 -G 16 for six dispatches with --learn
+    --learn-interval 0.5 (engine cuda: masked havoc, then kbz_vm_kernel
+    over every lane) in turns with the same run without --learn
+    (cuda_fused): learn, plain, plain, learn.  Gate per learn run:
+    exit 0, learn_model_version >= 1, a learn_update event,
+    learn_train_steps > 0, kbz_vm_kernel launches > 0.  Then --resume of
+    the last learn run (its training off) restores the model version.
+    Returns (the learn runs' launches, summed; the learn timer's ms)."""
+    from killerbeez_tpu_torch.corpus.store import CorpusStore
+    total, rows, learn_ms = {}, [], []
+    for i, lane in enumerate(("learn", "plain", "plain", "learn")):
+        name = f"learn_flagship_{lane}_{i}"
+        extra = ["-G", "16"]
+        need = ("kbz_fuzz_kernel",)
+        if lane == "learn":
+            extra += ["--learn", "--learn-interval", "0.5", "--corpus-dir",
+                      str(OUT / f"{name}_corpus")]
+            need = ("kbz_vm_kernel_all",)
+        launches, rate, out = flagship(name, *extra,
+                                       batches=LEARN_BATCHES, need=need)
+        rows.append(f"{lane} {rate:.0f}")
+        if lane != "learn":
+            continue
+        snaps = [json.loads(line) for line in
+                 (out / "stats.jsonl").read_text().splitlines() if line]
+        last = snaps[-1]
+        version = last.get("gauges", {}).get("learn_model_version", 0)
+        steps = last.get("counters", {}).get("learn_train_steps", 0)
+        ups = [e for e in events(out) if e["type"] == "learn_update"]
+        if version < 1 or steps <= 0 or not ups:
+            raise AssertionError(f"{name}: the model never trained "
+                                 f"(version {version}, {steps} steps, "
+                                 f"{len(ups)} learn_update events)")
+        version = int(version)
+        hist = last.get("hists", {}).get("learn", {})
+        learn_ms.append({
+            "rounds_and_checks": hist.get("total", 0),
+            "ms_total": round(last.get("counters", {}).get(
+                "learn_seconds", 0.0) * 1e3, 3),
+            "version": version, "train_steps": steps})
+        for k, v in launches.items():
+            total[k] = total.get(k, 0) + v
+        resumed = (name, version)
+    name, version = resumed
+    corpus = OUT / f"{name}_corpus"
+    run_cli(["-b", str(B), "-n", str(16 * B), "-G", "16", *LEARN_OFF,
+             "--corpus-dir", str(corpus), "--resume", "-i",
+             json.dumps({**GEN_IOPTS, "engine": "cuda_fused"})],
+            f"{name}_resume")
+    ck = CorpusStore(str(corpus)).load_checkpoint() or {}
+    got = (ck.get("learn") or {}).get("version")
+    if got != version:
+        raise AssertionError(f"--resume of {name}: model version {got}, "
+                             f"checkpointed {version}")
+    print(f"learn flagships on {card} ({LEARN_BATCHES} batches of {B} at "
+          f"-G 16, in turns learn, plain, plain, learn): execs/s "
+          f"{', '.join(rows)}; learn timer {learn_ms}; --resume restored "
+          f"model version {version}", flush=True)
+    return total, learn_ms
+
+
+def fleet_run(card):
+    """14d: a fleet on one card.  A manager in this process on
+    127.0.0.1:0 with a file DB; two jobs of the flagship campaign (file
+    jit_harness havoc on tlvstack_vm, cuda_fused, at the CLI's default
+    batch: a job row carries no batch size in either package), and
+    beside each job a CLI at the flagship width (-b B, FLEET_BATCHES
+    batches) syncing and gossiping under that job's campaign key.  The
+    CLIs start first; once each has pushed a row, two concurrent worker
+    subprocesses (--once, gossip, corpus sync every 0.25 s) claim the
+    jobs.  Gate: both jobs done; the manager's corpus holds rows from
+    both workers and both CLIs; each worker pulled entries its CLI found
+    first; heartbeats > 0; findings assimilated; /metrics parses and
+    carries kbz_manager_degraded; each worker's and each CLI's log shows
+    kernel launches > 0.  Returns each process's launches."""
+    import urllib.request
+    from killerbeez_tpu_torch.manager.api import ManagerServer
+    from killerbeez_tpu_torch.models.targets_cgc import tlvstack_vm_seed
+    from killerbeez_tpu_torch.telemetry.sink import read_latest_snapshot
+    fleet = OUT / "fleet"
+    shutil.rmtree(fleet, ignore_errors=True)
+    fleet.mkdir(parents=True)
+    seed = fleet / "seed.bin"
+    seed.write_bytes(tlvstack_vm_seed())
+    srv = ManagerServer(port=0, db_path=str(fleet / "manager.db"))
+    srv.start()
+    url = f"http://127.0.0.1:{srv.port}"
+    instr_opts = json.dumps({"target": "tlvstack_vm", "engine": "cuda_fused",
+                             "novelty": "throughput"})
+
+    def call(path, payload=None):
+        req = urllib.request.Request(
+            url + path, method="POST" if payload is not None else "GET",
+            data=json.dumps(payload).encode() if payload is not None
+            else None, headers={"Content-Type": "application/json"})
+        with urllib.request.urlopen(req, timeout=30) as resp:
+            body = resp.read()
+            return json.loads(body) if body else None
+
+    def start(name, argv):
+        log = open(fleet / f"{name}.log", "w")
+        # a session of its own: a worker runs its job's CLI as a child,
+        # and a failure must stop that child too
+        procs.append((name, log, subprocess.Popen(
+            [sys.executable, "-m"] + argv, cwd=str(ROOT), stdout=log,
+            stderr=subprocess.STDOUT, start_new_session=True)))
+
+    def wait(names):
+        for name, log, p in procs:
+            if name not in names:
+                continue
+            rc = p.wait(timeout=400)
+            log.close()
+            if rc != 0:
+                raise AssertionError(
+                    f"fleet process {name} exited {rc}:\n"
+                    f"{(fleet / f'{name}.log').read_text()[-3000:]}")
+
+    t0 = time.perf_counter()
+    procs = []
+    try:
+        tid = call("/api/target", {"name": "tlvstack_vm"})["id"]
+        jobs = []
+        for j in range(2):
+            jobs.append(call("/api/job", {
+                "target_id": tid, "driver": "file",
+                "instrumentation": "jit_harness", "mutator": "havoc",
+                "iterations": FLEET_JOB_EXECS, "seed_file": str(seed),
+                "instrumentation_opts": instr_opts,
+                "mutator_opts": json.dumps({"seed": MUT_SEED + j})})["id"])
+        clis = {f"c{j}": str(job) for j, job in enumerate(jobs, 1)}
+        for c, key in clis.items():
+            start(c, ["killerbeez_tpu_torch.fuzzer", "file", "jit_harness",
+                      "havoc", "-sf", str(seed), "-n", str(FLEET_BATCHES * B),
+                      "-b", str(B), "-i", instr_opts, "-m",
+                      json.dumps({"seed": MUT_SEED + 10 + int(key)}),
+                      "-o", str(fleet / c), "--corpus-dir",
+                      str(fleet / c / "corpus"), "--sync-manager", url,
+                      "--sync-campaign", key, "--sync-worker", c,
+                      "--sync-interval", "0.25", "--gossip", "0"])
+        deadline = time.perf_counter() + 300
+        while True:
+            ended = all(p.poll() is not None for _, _, p in procs)
+            if all(any(r["worker"] == c for r in
+                       srv.db.get_corpus_entries(key, 0))
+                   for c, key in clis.items()):
+                break
+            if ended or time.perf_counter() > deadline or any(
+                    p.poll() not in (None, 0) for _, _, p in procs):
+                raise AssertionError("a fleet CLI pushed no corpus row")
+            time.sleep(0.2)
+        for w in ("w1", "w2"):
+            start(w, ["killerbeez_tpu_torch.manager.worker", url, "--once",
+                      "--gossip", "--name", w, "--corpus-sync", "0.25"])
+        wait(["c1", "c2", "w1", "w2"])
+        wall = time.perf_counter() - t0
+        status = [call(f"/api/job/{j}")["status"] for j in jobs]
+        if status != ["done", "done"]:
+            raise AssertionError(f"fleet jobs ended {status}")
+        rows, pulled = {}, {}
+        for key in clis.values():
+            rows[key] = call(f"/api/corpus/{key}?since=0")["entries"]
+            for r in srv.db.get_campaign_stats(key):
+                c = r["snapshot"].get("counters", {})
+                pulled[r["worker"]] = c.get("corpus_synced_in", 0) + \
+                    c.get("gossip_entries_in", 0)
+        authors = {r.get("worker") for rs in rows.values() for r in rs}
+        if not {"w1", "w2", "c1", "c2"} <= authors:
+            raise AssertionError(f"the manager's corpus holds rows of "
+                                 f"{authors}, not of both workers and "
+                                 "both CLIs")
+        if sorted(pulled) != ["w1", "w2"]:
+            raise AssertionError(f"heartbeat snapshots of {sorted(pulled)}, "
+                                 "not of both workers")
+        if min(pulled.values()) <= 0:
+            raise AssertionError(f"a worker admitted nothing its CLI "
+                                 f"found first: {pulled}")
+        for c in clis:
+            snap = read_latest_snapshot(str(fleet / c)) or {}
+            cc = snap.get("counters", {})
+            pulled[c] = cc.get("corpus_synced_in", 0) + \
+                cc.get("gossip_entries_in", 0)
+        results = sum(len(call(f"/api/job/{j}/results")) for j in jobs)
+        if not results:
+            raise AssertionError("no findings assimilated")
+        launches, beats = {}, {}
+        for name in ("w1", "w2", "c1", "c2"):
+            text = (fleet / f"{name}.log").read_text()
+            m = re.findall(r"kernel launches: (\{.*\})", text)
+            if not m:
+                raise AssertionError(f"{name}: no launch counts in its log")
+            launches[name] = json.loads(m[-1])
+            if min(launches[name][k] for k in ("kbz_fuzz_kernel",
+                                               "kbz_vm_kernel")) <= 0:
+                raise AssertionError(f"{name}: a kernel never launched: "
+                                     f"{launches[name]}")
+            if name.startswith("w"):
+                hb = re.findall(r"findings, (\d+) heartbeats", text)
+                beats[name] = sum(int(x) for x in hb)
+                if beats[name] <= 0:
+                    raise AssertionError(f"worker {name}: no heartbeat")
+        with urllib.request.urlopen(url + "/metrics", timeout=30) as resp:
+            metrics = resp.read().decode()
+        sys.path.insert(0, str(ROOT / "tests"))
+        try:
+            from openmetrics_parser import parse_openmetrics
+            parse_openmetrics(metrics)
+        finally:
+            sys.path.pop(0)
+        if "kbz_manager_degraded" not in metrics:
+            raise AssertionError("/metrics lacks kbz_manager_degraded")
+    finally:
+        for _, log, p in procs:
+            with contextlib.suppress(ProcessLookupError):
+                os.killpg(p.pid, signal.SIGKILL)
+            p.wait()
+            log.close()
+        srv.stop()
+    print(f"fleet on {card}: 2 jobs done by 2 concurrent workers beside 2 "
+          f"CLIs at -b {B} in {wall:.1f} s wall; manager corpus "
+          f"{sum(len(r) for r in rows.values())} rows from "
+          f"{sorted(authors)}; entries pulled from the other side "
+          f"{pulled}; heartbeats {beats}; {results} findings assimilated; "
+          f"/metrics parses with kbz_manager_degraded", flush=True)
+    print("fleet worker launches: " + json.dumps(launches), flush=True)
+    return launches
+
+
 class Phases:
     """Prints each phase's wall time as the next one starts."""
 
@@ -2926,6 +3464,19 @@ def main() -> int:
     phases.start("13d (kbz-supervise, host tools)")
     supervisor_run()
 
+    # -- phase 14: the learn tier and the fleet ------------------------
+    t14 = time.perf_counter()
+    phases.start("14a (learn model card == CPU)")
+    cpu_tier, learn_times = learn_model_parity(card, vk, prng)
+    phases.start("14b (learn parity)")
+    learn_dispatch_parity(cpu_tier)
+    learn_cli_parity()
+    phases.start("14c (learn flagship)")
+    learn_launches, _ = learn_flagships(card)
+    phases.start("14d (fleet on one card)")
+    fleet_launches = fleet_run(card)
+    print(f"phase 14: {time.perf_counter() - t14:.1f} s wall", flush=True)
+
     # -- phase 9: the record -------------------------------------------
     phases.start("9 (record)")
     print(f"main-path launches: host-driven {launches}, -G 16 "
@@ -2934,7 +3485,9 @@ def main() -> int:
           f"{vm_all_launches}, ipt {ipt_launches}, edges {edges_launches}, "
           f"rare-edge {rare_launches}, mutators {mut_launches}, crack "
           f"{crack_launches}, stateful: none (phase 12's single-shot lane "
-          f"{single_launches}), grammar {grammar_launches}; over this "
+          f"{single_launches}), grammar {grammar_launches}, learn "
+          f"{learn_launches} (fleet workers, in their own processes: "
+          f"{fleet_launches}); over this "
           f"whole run: {vk.LAUNCHES}, of which in its CLI runs "
           f"{CLI_LAUNCHES}",
           flush=True)
@@ -2947,6 +3500,7 @@ def main() -> int:
                  + rare_launches["kbz_vm_kernel_all"]
                  + crack_launches["kbz_vm_kernel_all"]
                  + grammar_launches["kbz_vm_kernel_all"]
+                 + learn_launches["kbz_vm_kernel_all"]
                  + sum(m["kbz_vm_kernel_all"]
                        for m in mut_launches.values()))
     kernels = [

@@ -32,9 +32,14 @@ stateful session tier, the grammar tier and the target zoo):
                     rest, grammar included, run unfused)
   grammar/          grammar specs, the structure compiler, structured
                     mutation in torch ops and auto-derivation
-  learn/            the provenance dataset (the model is not ported)
+  learn/            the provenance dataset, the byte-saliency model
+                    (trained on the card) and the learn tier (--learn)
   drivers/          file, stdin, network_server, network_client
-  corpus/           the corpus store and the seed schedulers
+  corpus/           the corpus store, the seed schedulers, corpus
+                    sync, gossip and quarantine
+  manager/          the fleet manager (REST + work queue) and its
+                    worker
+  hybrid/           the per-tier fleet reconciliation
   analysis/         the block CFG, the static edge prior and the
                     dataflow analysis behind the auto-dictionary
   stateful/         the session tier: sequence framing, the session
@@ -43,7 +48,7 @@ stateful session tier, the grammar tier and the target zoo):
                     dictionaries
   telemetry/        metrics registry, stats files, event log, span ring
   resilience/       chaos points, checkpoints, the dispatch watchdog,
-                    the supervisor (kbz-supervise)
+                    the supervisor (kbz-supervise), fleetsim
   parallel/         the mesh campaign (--mesh dp,mp)
   fuzzer/           the batched main loop (corpus feedback) + CLI
   tools/            tracer, showmap, merger, minimize, picker, kb-solve,

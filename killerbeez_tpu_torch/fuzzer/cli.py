@@ -62,14 +62,9 @@ from .loop import Fuzzer
 # (flags, nargs) of the reference CLI's options whose machinery is not
 # ported yet: parsed, then refused
 UNPORTED = (
-    (("--sync-manager",), None), (("--sync-campaign",), None),
-    (("--sync-worker",), None), (("--sync-interval",), None),
-    (("--gossip",), "?"), (("--gossip-fanout",), None),
-    (("--gossip-host",), None), (("--gossip-advertise",), None),
     (("--hybrid",), None), (("--hybrid-repeats",), None),
     (("--hybrid-queue",), None), (("--hybrid-workers",), None),
     (("--auto-repair",), "?"),
-    (("--learn",), "?"), (("--learn-interval",), None),
 )
 _NOT_GIVEN = object()
 
@@ -193,6 +188,59 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("-K", "--accumulate", type=int, default=0,
                    help="fused device path: K batches per call "
                         "(0 = auto, 1 = per-batch)")
+    p.add_argument("--sync-manager",
+                   help="manager base URL for fleet corpus exchange "
+                        "(POST/GET /api/corpus/<campaign>); requires "
+                        "--sync-campaign")
+    p.add_argument("--sync-campaign",
+                   help="campaign key for --sync-manager (job id)")
+    p.add_argument("--sync-worker", default=None,
+                   help="worker name for corpus sync (default "
+                        "worker-<pid>)")
+    p.add_argument("--sync-interval", type=float, default=30.0,
+                   help="seconds between corpus sync rounds "
+                        "(default 30)")
+    p.add_argument("--gossip", type=int, nargs="?", const=0,
+                   default=None, metavar="PORT",
+                   help="peer-to-peer corpus gossip (requires "
+                        "--sync-manager): serve this worker's corpus "
+                        "on PORT (0 = ephemeral, the bare default) "
+                        "and pull a random fanout of peers each sync "
+                        "round, with the manager demoted to peer "
+                        "directory + anti-entropy backstop.  Synced-in "
+                        "entries are validated (schema/size/cov_hash) "
+                        "and quarantined to <corpus>/quarantine/ on "
+                        "failure; peers crossing the poison threshold "
+                        "are banned with decorrelated backoff")
+    p.add_argument("--gossip-fanout", type=int, default=2,
+                   metavar="N",
+                   help="peers pulled per gossip round (default 2)")
+    p.add_argument("--gossip-host", default="127.0.0.1",
+                   metavar="ADDR",
+                   help="address the gossip sidecar binds (default "
+                        "127.0.0.1 = loopback-only; multi-host fleets "
+                        "need 0.0.0.0 or the NIC address, usually with "
+                        "--gossip-advertise)")
+    p.add_argument("--gossip-advertise", metavar="URL",
+                   help="URL peers should reach this worker's sidecar "
+                        "at (default: its bind address)")
+    p.add_argument("--learn", action="store_true",
+                   help="learned mutation shaping (jit_harness): train "
+                        "a small byte-saliency model on the card from "
+                        "the campaign's own lineage (provenance "
+                        "sidecars) and focus havoc on the "
+                        "predicted-useful positions: per generation in "
+                        "the -G loops (one device and --mesh), per "
+                        "rotation via focus masks in the host-driven "
+                        "loop.  Until the first training round masks "
+                        "are all-ones and every path is bit-identical "
+                        "to an unshaped campaign; the weights ride the "
+                        "checkpoint epoch, so --resume restores them.  "
+                        "Exclusive with --crack")
+    p.add_argument("--learn-interval", type=float, default=5.0,
+                   metavar="S",
+                   help="with --learn: minimum seconds between training "
+                        "rounds (default 5)")
     p.add_argument("--device", default="cuda",
                    help='"cuda" (default: the card) or "cpu" (the '
                         "plain PyTorch versions)")
@@ -375,6 +423,32 @@ def main(argv: Optional[List[str]] = None) -> int:
                   file=sys.stderr)
             return 2
 
+        if args.learn:
+            # inject the learn option into the instrumentation config
+            # (the engine's stand-down and tool visibility — the
+            # augmentation --stateful uses)
+            if args.instrumentation != "jit_harness":
+                print("error: --learn needs the jit_harness "
+                      "instrumentation (the saliency model trains and "
+                      "infers on the device the fuzzer runs on)",
+                      file=sys.stderr)
+                return 2
+            if args.crack:
+                print("error: --learn and --crack are mutually "
+                      "exclusive — each installs its own mutation focus "
+                      "masks (learned saliency vs the static frontier "
+                      "dependency sets); run one mask source at a time",
+                      file=sys.stderr)
+                return 2
+            try:
+                iopts = json.loads(args.instrumentation_options) \
+                    if args.instrumentation_options else {}
+            except ValueError:
+                iopts = None     # the factory reports the parse error
+            if isinstance(iopts, dict):
+                iopts.setdefault("learn", 1)
+                args.instrumentation_options = json.dumps(iopts)
+
         if args.stateful is not None:
             # inject the session-tier options into the instrumentation
             # config
@@ -434,6 +508,31 @@ def main(argv: Optional[List[str]] = None) -> int:
         corpus_dir = args.corpus_dir
         if args.resume and not corpus_dir:
             corpus_dir = os.path.join(args.output, "corpus")
+        sync = None
+        if args.gossip is not None and not args.sync_manager:
+            print("error: --gossip needs --sync-manager (the peer "
+                  "directory lives there)", file=sys.stderr)
+            return 2
+        if args.sync_manager:
+            if not args.sync_campaign:
+                print("error: --sync-manager needs --sync-campaign",
+                      file=sys.stderr)
+                return 2
+            worker_name = args.sync_worker or f"worker-{os.getpid()}"
+            if args.gossip is not None:
+                from ..corpus.gossip import GossipSync
+                sync = GossipSync(args.sync_manager, args.sync_campaign,
+                                  worker=worker_name,
+                                  interval_s=args.sync_interval,
+                                  fanout=args.gossip_fanout,
+                                  listen_host=args.gossip_host,
+                                  listen_port=args.gossip,
+                                  advertise=args.gossip_advertise)
+            else:
+                from ..corpus.sync import CorpusSync
+                sync = CorpusSync(args.sync_manager, args.sync_campaign,
+                                  worker=worker_name,
+                                  interval_s=args.sync_interval)
         watchdog = None
         if args.watchdog > 0:
             from ..resilience.watchdog import DispatchWatchdog
@@ -441,6 +540,13 @@ def main(argv: Optional[List[str]] = None) -> int:
                 multiplier=args.watchdog,
                 min_deadline=args.watchdog_min,
                 max_deadline=args.watchdog_max)
+        learn_tier = None
+        if args.learn:
+            from ..learn import LearnTier
+            learn_tier = LearnTier(
+                train_interval_s=args.learn_interval,
+                max_len=getattr(mutator, "max_length", 4096),
+                device=args.device)
 
         fuzzer = Fuzzer(driver, output_dir=args.output,
                         batch_size=args.batch_size,
@@ -456,7 +562,8 @@ def main(argv: Optional[List[str]] = None) -> int:
                         events_max_mb=args.events_max_mb,
                         watchdog=watchdog,
                         profile_device=args.profile_device,
-                        generations=args.generations)
+                        generations=args.generations,
+                        sync=sync, learn=learn_tier)
         if args.schedule == "rare-edge":
             _wire_rare_edge_signer(fuzzer, driver)
             _wire_static_prior(fuzzer, driver)
@@ -525,6 +632,8 @@ def main(argv: Optional[List[str]] = None) -> int:
         if args.mutator_state_dump:
             write_buffer_to_file(args.mutator_state_dump,
                                  mutator.get_state().encode())
+        if sync is not None:
+            sync.close()        # the gossip sidecar stops serving
         driver.cleanup()
         instrumentation.cleanup()
         mutator.cleanup()

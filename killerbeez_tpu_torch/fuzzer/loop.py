@@ -51,8 +51,17 @@ admission candidates of a batch or dispatch signed in one session
 batch), and the state-coverage gauges and ``state_cov`` events follow
 the live state x edge map.
 
-Not ported yet: the repair stage, sync, and the learn and hybrid
-tiers.
+With a learn tier (learn/, CLI ``--learn``) admissions label the
+byte-saliency model (and write their ``provenance`` into the sidecar),
+bucket-only new paths label it negative, the model trains on the card
+between dispatches, and its masks shape mutation: at each rotation in
+the host-driven loop (``set_focus_mask``), per generation under ``-G``
+(the weights ride each dispatch).  With a corpus sync (corpus/sync.py
+or corpus/gossip.py, CLI ``--sync-manager``/``--gossip``) every
+admission is noted for the fleet and a time-gated sync round runs
+after each dispatch, with one forced round at the end of the run.
+
+Not ported yet: the repair stage and the hybrid tier.
 """
 
 from __future__ import annotations
@@ -201,7 +210,9 @@ class Fuzzer:
                  events_max_mb: float = 0.0,
                  watchdog=None,
                  profile_device: int = 0,
-                 generations: int = 0):
+                 generations: int = 0,
+                 sync=None,
+                 learn=None):
         self.driver = driver
         self.output_dir = output_dir
         self.batch_size = int(batch_size)
@@ -241,6 +252,16 @@ class Fuzzer:
         #: durable corpus tier: admissions write through immediately;
         #: scheduler/campaign state flushes every PERSIST_INTERVAL seconds
         self.store = CorpusStore(corpus_dir) if corpus_dir else None
+        #: manager-mediated corpus exchange (corpus/sync.py, or
+        #: corpus/gossip.py's peer-to-peer one); polled between
+        #: dispatches, time-gated inside
+        self.sync = sync
+        #: learned mutation shaping (learn/): a LearnTier collecting
+        #: labels from the admission stream, training the byte-saliency
+        #: model on its device between dispatches and serving masks —
+        #: weights for the -G generation loops, set_focus_mask positions
+        #: at rotation for the host-driven loop.  None = off
+        self.learn = learn
         #: optional signature hook: bytes -> [edge slot, ...] for the
         #: entry sidecar (--schedule rare-edge; the CLI installs it)
         self._signer = None
@@ -355,6 +376,11 @@ class Fuzzer:
         }}
         if self.cracker is not None:
             doc["solver"] = self.cracker.cache
+        if self.learn is not None:
+            # model weights + version ride the SAME epoch: --resume
+            # restores the trained model (labels rebuild from the
+            # provenance sidecars, see _restore_campaign)
+            doc["learn"] = self.learn.state_dict()
         if self.telemetry.events is not None:
             # the log's high-water at save time: resume anchors seq
             # at max(file tail, checkpoint)
@@ -448,6 +474,18 @@ class Fuzzer:
                     int(ck.get("event_seq", 0)))
             except (TypeError, ValueError):
                 pass
+        if self.learn is not None:
+            if ck and isinstance(ck.get("learn"), dict):
+                self.learn.load_state(ck["learn"])
+            # labels rebuild from the persisted provenance sidecars
+            # (entries without the field contribute nothing); explicit
+            # reject negatives restart empty, which only slows
+            # re-sharpening
+            self.learn.bootstrap(entries, self._parent_bytes)
+            self.telemetry.registry.gauge(
+                "learn_model_version", self.learn.version)
+            self.telemetry.registry.gauge(
+                "learn_label_count", len(self.learn.labels))
         # -n counts THIS invocation's executions; restored lifetime
         # counters keep stats files and rates cumulative
         self._iter_base = int(self.stats.iterations)
@@ -499,13 +537,36 @@ class Fuzzer:
                 return None
         return None
 
+    def _learn_admission(self, arm: Arm, buf: bytes,
+                         parent: str) -> None:
+        """Label one admission for the learn tier and attach the
+        mutation-provenance record to the arm (it rides into the entry
+        sidecar).  Best-effort: a failed label never blocks an
+        admission."""
+        if self.learn is None:
+            return
+        pbuf = self._parent_bytes(parent)
+        if not pbuf:
+            return
+        mut = getattr(self.driver, "mutator", None)
+        stage = None
+        stage_fn = getattr(mut, "stage_name", None)
+        if stage_fn is not None:
+            try:
+                stage = stage_fn()
+            except Exception:
+                stage = None
+        arm.provenance = self.learn.note_admission(
+            parent or "base", pbuf, buf, getattr(mut, "name", "?"), stage)
+
     _NO_CREDIT = object()   # credit sentinel: None credits the base seed
 
     def _admit_arm(self, buf: bytes, digest: str, parent: str,
                    credit=_NO_CREDIT) -> None:
         """The ADMISSION stage of triage: mint a corpus arm for an
-        edge-novel finding — its coverage signature (``_signer``),
-        store write-through, scheduler admission,
+        edge-novel finding — its coverage signature (``_signer``), the
+        learn tier's labels and provenance, store write-through, the
+        sync note, scheduler admission,
         and one find credited to ``credit``, the arm that GENERATED
         the batch (None: the base seed; ``_NO_CREDIT``: none, for the
         --generations ledger replay).  Shared by host-side lane triage
@@ -533,11 +594,16 @@ class Fuzzer:
                 arm.state_sig = ssig_fn(buf)
             except Exception as e:
                 WARNING_MSG("state signature failed: %s", e)
+        # learn tier: positive labels + the provenance record BEFORE the
+        # store write-through, so the sidecar carries it
+        self._learn_admission(arm, buf, parent)
         if self.store is not None and not os.path.exists(
                 self.store.entry_path(digest)):
             arm.seq = self.store.next_seq()
             with self.telemetry.timer("fs_write"):
                 self.store.put(arm.to_entry())
+        if self.sync is not None:
+            self.sync.note_entry(arm.to_entry())
         if self.feedback and not self.scheduler.holds(digest):
             # admission evicts the oldest arm beyond the cap
             # (rotation only — the store keeps it); the ENTRY-object
@@ -642,6 +708,15 @@ class Fuzzer:
                     parent=getattr(self._credit_arm, "md5", None)
                     or "base",
                     credit=self._credit_arm)
+            elif recorded and new_path == 1 and self.learn is not None:
+                # bucket-only new path — interesting but NOT admitted:
+                # the admission stream's reject, labeled negative
+                # (budget-capped inside the tier).  Parent = the
+                # generating arm (the base seed in -G drains)
+                pkey = getattr(self._credit_arm, "md5", None) or "base"
+                pbuf = self._parent_bytes(pkey)
+                if pbuf:
+                    self.learn.note_reject(pkey, pbuf, buf)
 
     def _debug_repro(self, buf: bytes) -> None:
         """Re-run a unique crash once under the ptrace debug tier and
@@ -716,6 +791,11 @@ class Fuzzer:
             # runs on clean exits AND interrupts, so --resume
             # continues exactly here
             self._persist_campaign(force=True)
+            # one forced sync round last: entries triaged at the end
+            # (a short campaign triages everything there) still reach
+            # the fleet
+            if self.sync is not None:
+                self.sync.maybe_sync(self, force=True)
         INFO_MSG("Ran %d iterations in %.1f seconds "
                  "(%.0f execs/s lifetime, %.0f recent)",
                  self.stats.iterations, self.stats.elapsed,
@@ -908,6 +988,16 @@ class Fuzzer:
                 mut.iteration = it
                 self._active_entry = (None if best is None
                                       else self.scheduler.arms[best])
+                # learned mask source (host-driven loop): focus the next
+                # period's mutation on the model's salient bytes of the
+                # freshly rotated seed; a None mask CLEARS — shaping
+                # never outlives the seed it was computed for.  The
+                # mask stands the fused superbatch down, as the crack
+                # stage's masks do
+                if self.learn is not None:
+                    mut.set_focus_mask(
+                        self.learn.focus_positions_for(cand),
+                        pad_pow2=True)
                 self.telemetry.event(
                     "scheduler_pick",
                     arm=(getattr(self._active_entry, "md5", None)
@@ -947,14 +1037,34 @@ class Fuzzer:
         return k
 
     def _after_dispatch(self, n: int, pending) -> None:
-        """Per-dispatch bookkeeping: rates, gauges, the stats files
-        and the campaign checkpoint (each time-gated)."""
+        """Per-dispatch bookkeeping: rates, gauges, the learn tier's
+        training, the stats files, the campaign checkpoint and the
+        sync round (each time-gated)."""
         reg = self.telemetry.registry
         reg.rate("execs", n)
         reg.gauge("pipeline_depth", len(pending))
         self._update_state_gauges()
+        self._between_dispatches()
+
+    def _between_dispatches(self) -> None:
+        """The loops' common tail after each dispatch: train the learn
+        tier when due, flush the stats files, checkpoint, sync."""
+        self._maybe_learn()
         self.telemetry.maybe_flush()
         self._persist_campaign()
+        if self.sync is not None:
+            self.sync.maybe_sync(self)
+
+    def _maybe_learn(self) -> None:
+        """Between-dispatches learn-tier hook: train the saliency model
+        when due (time- and label-gated inside the tier — usually one
+        cheap check).  The round runs on the card behind the in-flight
+        fuzzing dispatches, which is why the model shares it."""
+        if self.learn is None:
+            return
+        with self.telemetry.timer("learn"):
+            self.learn.maybe_train(self.telemetry.registry,
+                                   self.telemetry)
 
     def _run_superbatch(self, k: int, pending, depth) -> None:
         """Execute K fused batches in one call and enqueue K per-step
@@ -1160,8 +1270,7 @@ class Fuzzer:
                 self._triage_lane(result, instr.is_new_path(), buf,
                                   instr.last_unique_crash(),
                                   instr.last_unique_hang())
-            self.telemetry.maybe_flush()
-            self._persist_campaign()
+            self._between_dispatches()
 
     def _update_state_gauges(self, force: bool = False) -> None:
         """Stateful session tier: refresh the state-coverage gauges
@@ -1395,6 +1504,12 @@ class Fuzzer:
                         break
                     if self.profile_device and not self._prof_active:
                         self._profile_start()
+                    if self.learn is not None:
+                        # the LIVE weights for this dispatch's per-
+                        # generation inference (a version-0 model gives
+                        # all-ones masks: the parity regime)
+                        drv.instrumentation.learn_params = \
+                            self.learn.scan_params()
                     n_real = min(room, self.batch_size)
                     g_room = min(max(room // self.batch_size, 1), g_max)
                     # tails quantize down to a power of two: the JAX
@@ -1435,9 +1550,12 @@ class Fuzzer:
                     reg.rate("execs", g_eff * n_real)
                     reg.gauge("generations_per_dispatch", g_eff)
                     reg.gauge("pipeline_depth", len(pending))
+                    if self.learn is not None and self.learn.version > 0:
+                        # one learned mask per generation once the model
+                        # has trained (v0 masks are all-ones)
+                        self.learn.masks_applied += g_eff
                     self._update_state_gauges()
-                    self.telemetry.maybe_flush()
-                    self._persist_campaign()
+                    self._between_dispatches()
             finally:
                 while pending:
                     self._drain_generations(*pending.popleft())

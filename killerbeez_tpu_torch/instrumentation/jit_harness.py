@@ -30,6 +30,12 @@ their candidates with ``grammar_havoc_at`` and run them through
 ``kbz_vm_kernel`` over every lane; ``cuda_fused`` stands down to
 ``cuda``, as the JAX package stands its Pallas engines down to xla.
 
+``{"learn": 1}`` runs the learn tier (learn/): the loop installs the
+byte-saliency model's weights in ``learn_params`` before each ``-G``
+dispatch, whose generations draw masked havoc candidates and run them
+through ``kbz_vm_kernel`` over every lane; ``cuda_fused`` stands down
+to ``cuda``.
+
 ``{"edges": 1}`` keeps lane 0's static-edge counts of each batch (a
 host copy started without a wait) for ``get_edges``, ``last_trace``,
 ``get_edge_pairs`` and the module API — the tracer, showmap and the
@@ -236,7 +242,7 @@ def _fused_fuzz_multi(instrs, edge_table, u_slots, seg_id, seed, base_key,
 
 # options of the reference whose machinery this package has not
 # ported yet: passing one (other than at its default) is an error
-_UNPORTED = ("learn",)
+_UNPORTED = ()
 
 ENGINES = ("torch", "cuda", "cuda_fused")
 
@@ -311,6 +317,11 @@ class JitHarnessInstrumentation(Instrumentation):
         "grammar_stage": "grammar: structured-lane probability "
                          "numerator of 256 (default 128 = half the "
                          "lanes run structured stages)",
+        "learn": "1 = learned mutation shaping (learn/): the loop's "
+                 "byte-saliency model shapes -G and --mesh -G "
+                 "candidates per generation (masked havoc, then the VM "
+                 "kernel; \"cuda_fused\" stands down to \"cuda\"); "
+                 "exclusive with grammar",
         **{k: "not ported yet" for k in _UNPORTED},
     }
     DEFAULTS = {"novelty": "exact", "edges": 0, "phase1_steps": -1,
@@ -371,6 +382,18 @@ class JitHarnessInstrumentation(Instrumentation):
             raise ValueError(f'engine {self.engine!r} needs the CUDA '
                              'card (device "cuda"); the CPU runs '
                              'engine "torch"')
+        # -- learned mutation shaping (learn/) ------------------------
+        # the loop installs the live model weights here before each -G
+        # dispatch, and the generation loop infers a mask per
+        # generation (None = shaping off, the historical path)
+        self.learn_params = None
+        if self.options["learn"] and self.engine == "cuda_fused":
+            WARNING_MSG(
+                "jit_harness: learned mutation shaping runs the cuda "
+                "engine — \"cuda_fused\" stands down (the fused kernel "
+                "generates candidates in-kernel and cannot consume a "
+                "per-generation mask)")
+            self.engine = "cuda"
         # -- grammar tier (grammar/) ----------------------------------
         # the spec compiles to fixed-shape tables ONCE here, and goes
         # to the device once; -G dispatches (and the mesh's) draw their
@@ -708,7 +731,7 @@ class JitHarnessInstrumentation(Instrumentation):
             adm_cap=adm_cap, findings_cap=cap,
             stateful=None if spec is None else (
                 spec.m_max, spec.n_states, spec.state_reg),
-            vs=self.virgin_state,
+            vs=self.virgin_state, learn_params=self.learn_params,
             grammar=None if self.grammar_tables is None else (
                 self.grammar_tables, self._grammar_gt))
         self.virgin_bits, self.virgin_crash, self.virgin_tmout = vb, vc, vh

@@ -253,6 +253,46 @@ def np_select_slot(filled: np.ndarray, gen_id: int, salt: int) -> int:
     return int(np.argmax(np.cumsum(filled) > k))
 
 
+def _cached_slot_mask(learn_params, ring_bufs, ring_lens, sel,
+                      mask_cache, mask_valid):
+    """The learned mask of ring slot ``sel`` (an int32 scalar tensor),
+    through the per-slot cache shared by both generation loops (this
+    one and the mesh's per-shard loop): a slot's mask is a pure function
+    of the weights (fixed for a dispatch) and the slot's bytes.  The
+    JAX package skips inference on a cache hit with ``lax.cond``; here
+    the fresh mask is always computed (one [L, D] chain) and the cached
+    one selected on the device, so no host read decides the branch.
+    Cached or fresh, the bytes are the same.  ``mask_cache`` uint8[S +
+    1, L] and ``mask_valid`` int32[S + 1] (row S the sink) update in
+    place.  Returns the mask uint8[L]."""
+    from ..learn.model import masked_saliency
+    slot = sel.reshape(1).long()
+    fresh = masked_saliency(learn_params,
+                            ring_bufs.index_select(0, slot)[0],
+                            ring_lens.index_select(0, slot)[0])
+    hit = mask_valid.index_select(0, slot)[0] > 0
+    mask = torch.where(hit, mask_cache.index_select(0, slot)[0], fresh)
+    mask_cache.index_copy_(0, slot, mask[None])
+    mask_valid.index_fill_(0, slot, 1)
+    return mask
+
+
+def _invalidate_admitted_masks(mask_valid, ledger, n_slots: int) -> None:
+    """Ring admission overwrote slots 1..S-1: their cached masks are
+    stale once new bytes land.  ``ledger`` is ``_ring_append_and_admit``'s
+    (row 0 the validity, row 1 slot x validity); rows past the
+    admission count go to the sink row ``n_slots``."""
+    inv = torch.where(ledger[0] > 0, ledger[1], n_slots).long()
+    mask_valid.index_fill_(0, inv, 0)
+
+
+def new_mask_cache(slots: int, L: int, dev):
+    """An all-invalid per-slot mask cache (with the sink row): the
+    weights retrain between dispatches, so each dispatch starts cold."""
+    return (torch.zeros((slots + 1, L), dtype=torch.uint8, device=dev),
+            torch.zeros(slots + 1, dtype=torch.int32, device=dev))
+
+
 def _ring_append_and_admit(flags, aflags, packed, its, bufs, lens,
                            gen_id, sel, ring: RingState, fr, adm_cap,
                            reseed):
@@ -331,7 +371,7 @@ def run_generations(instrs, edge_table, u_slots, seg_id, ring: RingState,
                     stack_pow2=4, g=1, phase1_steps=0, reseed=True,
                     adm_cap=DEFAULT_ADM_CAP,
                     findings_cap=DEFAULT_FINDINGS_CAP, stateful=None,
-                    vs=None, learn=False, grammar=None):
+                    vs=None, learn_params=None, grammar=None):
     """G generations, enqueued on the current stream with no host read.
     Returns ((vb, vc, vh, vs), ring', report fields) — the report
     fields in ``GenerationOutcome``'s order.
@@ -360,14 +400,23 @@ def run_generations(instrs, edge_table, u_slots, seg_id, ring: RingState,
     ``kbz_vm_kernel`` over every lane on the card, its plain version on
     the CPU — as the JAX package's xla branch does; with stateful, the
     session executor runs them instead.  Degenerate tables give
-    exactly the havoc lanes.  The learn tier is not ported: asking for
-    it raises."""
+    exactly the havoc lanes.
+
+    ``learn_params`` (the byte-saliency model's weights, learn/) runs
+    the learn tier: each generation infers the selected slot's mask
+    (``_cached_slot_mask``; admissions invalidate their slots) and draws
+    its candidates with the masked havoc (``havoc_from_ring(...,
+    mask=)``), then runs them through ``run_batch`` as the grammar tier
+    does.  A version-0 model's all-ones mask gives exactly the havoc
+    lanes.  Grammar and learn are mutually exclusive."""
     from ..instrumentation.base import pack_verdicts
     from ..instrumentation.jit_harness import _judge
 
-    if learn:
-        raise ValueError("generations with the learn tier: the learn "
-                         "tier is not ported yet")
+    if grammar is not None and learn_params is not None:
+        raise ValueError(
+            "grammar and learn are mutually exclusive — both tiers "
+            "would own the generation loop's mutation (run the learned "
+            "mask OR the structure tables, not both)")
     dev = its0.device
     b = its0.shape[0]
     L = ring.bufs.shape[1]
@@ -390,16 +439,27 @@ def run_generations(instrs, edge_table, u_slots, seg_id, ring: RingState,
           torch.zeros((), dtype=torch.int32, device=dev)]
     sels, araws, ledgers = [], [], []
     slot0 = torch.zeros((), dtype=torch.int32, device=dev)
+    unfused = grammar is not None or stateful is not None \
+        or learn_params is not None
+    if learn_params is not None:
+        mask_cache, mask_valid = new_mask_cache(ring.slots, L, dev)
     for j in range(int(g)):
         gen_id = (int(gen0) + j) & M32
         sel = _select_slot(ring.filled[:ring.slots], gen_id, salt) \
             if reseed else slot0
         its = (its0 + j * int(n_real)) & M32
-        if grammar is not None or stateful is not None:
+        if unfused:
             if grammar is not None:
                 bufs, lens = grammar_from_ring(ring.bufs, ring.lens, sel,
                                                base_key, its, *grammar,
                                                stack_pow2)
+            elif learn_params is not None:
+                mask = _cached_slot_mask(learn_params, ring.bufs,
+                                         ring.lens, sel, mask_cache,
+                                         mask_valid)
+                bufs, lens = havoc_from_ring(ring.bufs, ring.lens, sel,
+                                             base_key, its, stack_pow2,
+                                             mask=mask)
             else:
                 bufs, lens = havoc_from_ring(ring.bufs, ring.lens, sel,
                                              base_key, its, stack_pow2)
@@ -427,6 +487,8 @@ def run_generations(instrs, edge_table, u_slots, seg_id, ring: RingState,
         ring, araw, ledger = _ring_append_and_admit(
             flags, aflags, packed, its, bufs, lens, gen_id, sel, ring, fr,
             A, reseed)
+        if learn_params is not None and reseed:
+            _invalidate_admitted_masks(mask_valid, ledger, ring.slots)
         sels.append(sel)
         araws.append(araw)
         ledgers.append(ledger)

@@ -288,17 +288,20 @@ def fuzz_batch_plain(instrs, edge_table, ring, ring_lens, sel, base_key,
     return res, bufs, lens
 
 
-def havoc_from_ring(ring, ring_lens, sel, base_key, its, stack_pow2=4):
+def havoc_from_ring(ring, ring_lens, sel, base_key, its, stack_pow2=4,
+                    mask=None):
     """The havoc half of ``kbz_fuzz_kernel``'s plain version, in torch
     ops on the ring's device: ring row ``sel`` mutated by each lane's
     words from ``fold_in(base_key, its)``.  Returns (bufs uint8[B, L],
     lens int32[B]); the unfused ``cuda`` engine of the mesh runs these
-    lanes through ``run_batch``."""
+    lanes through ``run_batch``.  ``mask`` (a dense uint8[L] focus
+    mask, the learn tier's) draws the edit positions from its set bytes
+    (``havoc_mask_at``); all-ones gives exactly the unmasked lanes."""
     slot = sel.reshape(1).long()
     seed = ring.index_select(0, slot)[0]
     seed_len = ring_lens.index_select(0, slot)[0]
     words = havoc_words_for_keys(prng.fold_in(base_key, its), stack_pow2)
-    return havoc_at(seed, seed_len, words, stack_pow2)
+    return havoc_at(seed, seed_len, words, stack_pow2, mask=mask)
 
 
 def fuzz_batch(instrs, edge_table, ring, ring_lens, sel, base_key, its,

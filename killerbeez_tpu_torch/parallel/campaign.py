@@ -230,10 +230,14 @@ class ShardedCampaignDriver(Driver):
         seed, seed_len = self._seed()
         L = int(self.mutator.max_length)
         slots = max(int(instr.options.get("gen_ring_slots", 32)), 2)
-        # the grammar tables are compiled at instrumentation init, so
-        # they stay the same for the campaign's lifetime
+        # learned shaping is decided by weight presence (the loop
+        # installs them before the first dispatch, so the flag never
+        # flips mid-campaign); the grammar tables are compiled at
+        # instrumentation init, so they stay the same for the
+        # campaign's lifetime
+        learn = getattr(instr, "learn_params", None) is not None
         grammar = getattr(instr, "grammar_tables", None)
-        key = (L, slots)
+        key = (L, slots, learn)
         if self._gen_ring is not None and self._gen_ring_key == key:
             return
         bpd = self.batch_per_device
@@ -248,7 +252,7 @@ class ShardedCampaignDriver(Driver):
             stack_pow2=int(self.mutator.options.get("stack_pow2", 4)),
             engine=instr.engine, seed=mseed, salt=mseed & 0xFFFFFFFF,
             adm_cap=adm_cap, findings_cap=cap, stateful=self._stateful,
-            grammar=grammar)
+            learn=learn, grammar=grammar)
         self._gen_ring = sharded_gen_ring_init(self.mesh, seed, seed_len,
                                                slots, L)
         self._gen_ring_key = key
@@ -271,7 +275,9 @@ class ShardedCampaignDriver(Driver):
         with self._span("execute"):     # the whole loop is on the device
             self.state, self._gen_ring, rep = self._gen_dispatch(
                 self.state, self._gen_ring, base_it, self._gen_count,
-                int(g), reseed=bool(reseed), fold_every=fold_every)
+                int(g), reseed=bool(reseed), fold_every=fold_every,
+                learn_params=getattr(self.instrumentation, "learn_params",
+                                     None))
         out = MeshGenerationOutcome(
             *rep, ring_filled=self._gen_ring.filled, gen0=self._gen_count,
             g=int(g), n_real=n, cap=self._gen_cap,

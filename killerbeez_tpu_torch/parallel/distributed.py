@@ -48,8 +48,9 @@ from ..models.vm import _run_batch_impl
 from ..ops.coverage import classify_counts, simplify_trace
 from ..grammar.device import grammar_from_ring
 from ..ops.generations import (
-    DEFAULT_ADM_CAP, DEFAULT_FINDINGS_CAP, _ring_append_and_admit,
-    _select_slot, new_ring,
+    DEFAULT_ADM_CAP, DEFAULT_FINDINGS_CAP, _cached_slot_mask,
+    _invalidate_admitted_masks, _ring_append_and_admit, _select_slot,
+    new_mask_cache, new_ring,
 )
 from ..ops.prng import threefry2x32
 from ..ops.sparse_coverage import _first_occurrence_multi, stream_hash
@@ -349,10 +350,16 @@ class _ShardKernels:
 
     # -- mutate + execute (engine switch) -----------------------------
 
-    def mutate_exec(self, d: int, ring, ring_lens, sel, key):
+    def mutate_exec(self, d: int, ring, ring_lens, sel, key, mask=None):
         """Havoc-mutate dp row d's lanes from ring row ``sel`` and run
         them; returns (VMResult, bufs uint8[bpd, L], lens int32[bpd])
-        on the row's device."""
+        on the row's device.  ``mask`` (the learn tier's dense uint8[L]
+        focus mask) draws the edit positions from its set bytes (engine
+        ``torch`` or ``cuda``); all-ones gives exactly the unmasked
+        lanes."""
+        if mask is not None and self.engine == "cuda_fused":
+            raise ValueError("learned mutation shaping needs the torch or "
+                             "cuda engine")
         p = self.program
         dev = self.mesh.row(d)
         instrs, table = self.tables(dev)
@@ -369,7 +376,7 @@ class _ShardKernels:
                               self.stack_pow2)
         else:
             bufs, lens = havoc_from_ring(ring, ring_lens, sel, key, its,
-                                         self.stack_pow2)
+                                         self.stack_pow2, mask=mask)
         if self.stateful is not None:
             # session tier: the mutants are framed sequences and the
             # result carries se_counts beside the classic fields
@@ -694,18 +701,25 @@ def make_sharded_generations(program, mesh: Mesh, batch_per_device: int,
     (engine ``torch`` or ``cuda``: the candidates then run through
     ``kbz_vm_kernel`` on the card), as the JAX mesh's xla engine does.
 
+    ``learn`` shapes every shard's candidates with the learn tier's
+    mask: each generation infers shard d's selected slot's mask from
+    the weights the dispatch is given (``learn_params``, replicated to
+    the shard's device) through a per-shard slot cache that admissions
+    invalidate, and mutates with the masked havoc (engine ``torch`` or
+    ``cuda``).
+
     Returns ``dispatch(state, ring, base_it, gen0, g, reseed,
-    fold_every) -> (state', ring', rep)`` where ``rep`` is the 13 ring
+    fold_every, learn_params) -> (state', ring', rep)`` where ``rep`` is the 13 ring
     and ledger fields of ``MeshGenerationOutcome`` (leading dp axis, on
     ``devices[0][0]``).  Rings update in place; ``ring.filled`` is read
     as a copy.  Nothing in a dispatch waits for the card."""
-    if learn and engine != "torch":
-        raise ValueError("learned mutation shaping needs the torch engine "
-                         "(the fused kernel generates candidates "
-                         "in-kernel)")
-    if learn:
-        raise ValueError("mesh generations with the learn tier: the learn "
-                         "tier is not ported yet")
+    if learn and engine == "cuda_fused":
+        raise ValueError("learned mutation shaping needs the torch or cuda "
+                         "engine (the fused kernel generates candidates "
+                         "in-kernel and cannot consume a mask)")
+    if learn and grammar is not None:
+        raise ValueError("grammar and learn are mutually exclusive — both "
+                         "tiers would own the generation loop's mutation")
     n_dp = mesh.shape["dp"]
     b = int(batch_per_device)
     kern = _ShardKernels(program, mesh, b, max_len, stack_pow2=stack_pow2,
@@ -719,12 +733,16 @@ def make_sharded_generations(program, mesh: Mesh, batch_per_device: int,
 
     def dispatch(state: ShardedFuzzState, ring: ShardedGenRing, base_it,
                  gen0: int, g: int, reseed: bool = True,
-                 fold_every: int = 0):
+                 fold_every: int = 0, learn_params=None):
         """Run ``g`` mesh generations in one dispatch.  ``fold_every``
         <= 0 means auto: once per dispatch with reseeding on, every
         generation with it off (the host-mesh-loop parity cadence).  A
         value that does not divide ``g`` is decremented to a divisor
         (warned once per (E, g) pair)."""
+        if learn and learn_params is None:
+            raise ValueError(
+                "this mesh generation dispatch was built with learn=True "
+                "— pass the model weights (learn_params)")
         _check_state(state, program, kern.stateful)
         g = int(g)
         asked = int(fold_every)
@@ -750,10 +768,15 @@ def make_sharded_generations(program, mesh: Mesh, batch_per_device: int,
                              f"{rings[0].slots - 1} admission slots "
                              "(gen_ring_caps clamps it)")
         lo0, hi0 = _counter_halves(base_it)
-        frs, ledgers = [], [[] for _ in range(n_dp)]
+        frs, ledgers, caches, lps = [], [[] for _ in range(n_dp)], [], []
         for d in range(n_dp):
             dev = mesh.row(d)
             L = rings[d].bufs.shape[1]
+            if learn:
+                # the weights replicated to the shard, and its slot
+                # cache, cold at every dispatch
+                lps.append(tuple(p.to(dev) for p in learn_params))
+                caches.append(new_mask_cache(rings[d].slots, L, dev))
             frs.append([torch.zeros(F + 1, dtype=dt, device=dev)
                         for dt in (torch.uint8, torch.int32, torch.int64,
                                    torch.int32)]
@@ -769,8 +792,11 @@ def make_sharded_generations(program, mesh: Mesh, batch_per_device: int,
                 sel = (_select_slot(r.filled[:r.slots], gen_id, salt ^ d)
                        if reseed else
                        torch.zeros((), dtype=torch.int32, device=dev))
+                mask = _cached_slot_mask(lps[d], r.bufs, r.lens, sel,
+                                         *caches[d]) if learn else None
                 res, bufs, lens = kern.mutate_exec(
-                    d, r.bufs, r.lens, sel, kern.base_key(lo, hi, dev))
+                    d, r.bufs, r.lens, sel, kern.base_key(lo, hi, dev),
+                    mask=mask)
                 statuses = torch.where(res.status == FUZZ_RUNNING,
                                        FUZZ_HANG, res.status
                                        ).to(torch.int32)
@@ -789,6 +815,9 @@ def make_sharded_generations(program, mesh: Mesh, batch_per_device: int,
                     (statuses != FUZZ_NONE) | (rets > 0), rets == 2,
                     packed, its, bufs, lens, gen_id, sel, r, frs[d], A_eff,
                     reseed)
+                if learn and reseed:
+                    _invalidate_admitted_masks(caches[d][1], ledger,
+                                               r.slots)
                 ledgers[d].append((sel, araw) + tuple(ledger))
             if (j + 1) % fold == 0:
                 _fold_maps(mesh, maps, vss)

@@ -245,6 +245,13 @@ def configure(spec) -> Optional[ChaosEngine]:
     return _engine
 
 
+def configure_from_env() -> Optional[ChaosEngine]:
+    """Pick up ``KBZ_CHAOS`` (how a supervisor injects faults into one
+    child launch, or a fleet worker into its manager RPCs, without
+    touching its argv)."""
+    return configure(os.environ.get("KBZ_CHAOS"))
+
+
 def active() -> Optional[ChaosEngine]:
     return _engine
 

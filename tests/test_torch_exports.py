@@ -2,8 +2,9 @@
 
 For every module of the JAX package that has a counterpart at the same
 path in ``killerbeez_tpu_torch``, each public name of the JAX module
-(its ``__all__``, else the names its top level defines that do not
-start with ``_``) must be defined in the port's module, or stand on one
+(its ``__all__``, else the names its top level defines, and for a
+package's ``__init__`` the names it imports from its own modules, that
+do not start with ``_``) must be defined in the port's module, or stand on one
 of the named lists below with the reason it is missing: the Queue A
 item of ``ROADMAP.md`` that ports it, or why it needs no port.  The
 modules are read as source (``ast``), so nothing here imports a
@@ -28,16 +29,16 @@ UNPORTED = {
         "save_patched_program", "verdict_class", "write_repair_ledger"]),
     "tools/lint_tool.py": ("A5: kb-lint's --gaps-dir", [
         "conformance_reports"]),
-    "corpus/__init__.py": ("A4: corpus sync, gossip and quarantine", [
-        "CorpusSync", "EntryValidator", "GossipSidecar", "GossipSync",
-        "PeerBans", "QuarantineStore"]),
-    "resilience/chaos.py": ("A4: the manager's worker calls it", [
-        "configure_from_env"]),
-    "learn/__init__.py": ("A3: the byte-saliency model and the tier", [
-        "FEATURES", "LearnTier", "WINDOW", "apply_model", "batch_features",
-        "decode_params", "encode_params", "feature_at", "init_params",
-        "masked_saliency", "n_params", "quantize_mask", "saliency_logits",
-        "train_step"]),
+    "hybrid/__init__.py": (
+        "A5: the gaps, registry, translate and validate names", [
+            "CertificationError", "GAP_SCHEMA", "GapIndex",
+            "HybridBridge", "NativeDelivery", "NativeSpec",
+            "NativeValidator", "ProxyBinding", "VERDICT_CONFIRMED",
+            "VERDICT_FLAKY", "VERDICT_PROXY_ONLY", "ValidationQueue",
+            "append_ledger", "bind", "binding_names", "builtin_bindings",
+            "certify_binding", "from_delivery", "get_binding",
+            "install_repaired", "load_ledger", "make_bridge",
+            "make_gap_report", "register_binding", "to_delivery"]),
 }
 
 #: names that need no port, by module, with the reason
@@ -63,7 +64,14 @@ def _public(path: pathlib.Path):
                 isinstance(t, ast.Name) and t.id == "__all__"
                 for t in node.targets):
             return set(ast.literal_eval(node.value))
-    return {n for n in _top_level(tree) if not n.startswith("_")}
+    names = set(_top_level(tree))
+    if path.name == "__init__.py":
+        # a package without __all__ exports what it imports from its
+        # own modules
+        for node in tree.body:
+            if isinstance(node, ast.ImportFrom) and node.level:
+                names.update(a.asname or a.name for a in node.names)
+    return {n for n in names if not n.startswith("_")}
 
 
 def _top_level(tree):

@@ -808,3 +808,107 @@ def test_grammar_generations_dispatch_never_waits_for_the_card(cuda):
     assert torch.equal(outs[0][2].virgin_bits.cpu(),
                        outs[1][2].virgin_bits)
     assert int(outs[0][1].fr_ptr) > 0
+
+
+# -- the learn tier ------------------------------------------------------
+
+
+def _trained_learn_params(dev):
+    """Weights one CPU training round made from seeded synthetic
+    admissions (early bytes useful), on ``dev``."""
+    import numpy as np
+    from killerbeez_tpu_torch.learn import LearnTier, model
+    rng = np.random.default_rng(5)
+    tier = LearnTier(train_interval_s=0.0, min_labels=8, device="cpu")
+    for i in range(16):
+        parent = rng.integers(0, 256, 32).astype(np.uint8).tobytes()
+        for _ in range(3):
+            child = bytearray(parent)
+            child[int(rng.integers(0, 6))] ^= 0x5A
+            tier.note_admission(f"p{i}", parent, bytes(child), "havoc")
+    tier.train_round()
+    return model.params_from_numpy([p.numpy() for p in tier.params], dev)
+
+
+@pytest.mark.parametrize("kind", ["ones", "random", "zeros"])
+def test_masked_havoc_on_the_card_equals_the_cpu(kind, cuda):
+    from killerbeez_tpu_torch.ops.mutate_core import havoc_at, havoc_mask_at
+    L, n = 64, 4096
+    gen = torch.Generator().manual_seed(3)
+    seed = torch.randint(0, 256, (L,), dtype=torch.uint8, generator=gen)
+    mask = {"ones": torch.ones(L, dtype=torch.uint8),
+            "zeros": torch.zeros(L, dtype=torch.uint8),
+            "random": torch.randint(0, 2, (L,), dtype=torch.uint8,
+                                    generator=gen)}[kind]
+    outs = []
+    for dev in (cuda, torch.device("cpu")):
+        words = vk.havoc_words_for_keys(prng.fold_in(
+            prng.key(3, device=dev), torch.arange(n, device=dev)))
+        outs.append(havoc_mask_at(seed.to(dev), 41, words, mask.to(dev)))
+        if kind != "random" and dev == cuda:
+            _equal(outs[0], havoc_at(seed.to(dev), 41, words))
+    _equal(outs[0], outs[1])
+
+
+@pytest.mark.parametrize("weights", ["v0", "trained"])
+def test_learn_generations_on_the_card_equal_the_cpu(weights, cuda):
+    """A learn -G 4 dispatch (per-generation inference through the slot
+    cache, masked havoc, then kbz_vm_kernel over every lane) on the card
+    against the CPU's plain path: every outcome field and the maps."""
+    from killerbeez_tpu_torch.instrumentation.jit_harness import (
+        JitHarnessInstrumentation,
+    )
+    from killerbeez_tpu_torch.learn import model
+    from killerbeez_tpu_torch.mutators.randomized import HavocMutator
+    got = []
+    for dev, engine in ((cuda, "cuda"), (torch.device("cpu"), "torch")):
+        instr = JitHarnessInstrumentation(
+            '{"target": "tlvstack_vm", "engine": "%s", "learn": 1, '
+            '"novelty": "throughput"}' % engine, device=dev)
+        instr.learn_params = model.init_params(device=dev) \
+            if weights == "v0" else _trained_learn_params(dev)
+        mut = HavocMutator('{"seed": 3}', targets_cgc.tlvstack_vm_seed(),
+                           device=dev)
+        before = vk.LAUNCHES["kbz_vm_kernel_all"]
+        out = instr.run_batch_generations(mut, mut.peek_iterations(1000), 4,
+                                          pad_to=1024).materialize()
+        if dev == cuda:
+            assert vk.LAUNCHES["kbz_vm_kernel_all"] == before + 4
+        got.append((out, [instr.virgin_bits.cpu(), instr.virgin_crash.cpu()]))
+    (a, am), (b, bm) = got
+    for f in a._fields:
+        x, y = getattr(a, f), getattr(b, f)
+        assert (x == y) if isinstance(x, int) else (x == y).all(), f
+    for x, y in zip(am, bm):
+        assert torch.equal(x, y)
+
+
+def test_learn_generations_dispatch_never_waits_for_the_card(cuda):
+    """A learn -G 4 dispatch with trained weights only enqueues work:
+    inference, the slot cache, masked havoc, kbz_vm_kernel, triage and
+    the ring (a host sync raises under sync debug mode "error")."""
+    from killerbeez_tpu_torch.drivers.factory import driver_factory
+    from killerbeez_tpu_torch.instrumentation.jit_harness import (
+        JitHarnessInstrumentation,
+    )
+    from killerbeez_tpu_torch.mutators.randomized import HavocMutator
+    instr = JitHarnessInstrumentation(
+        '{"target": "tlvstack_vm", "engine": "cuda_fused", "learn": 1, '
+        '"novelty": "throughput"}')
+    assert instr.engine == "cuda"          # the fused engine stood down
+    instr.learn_params = _trained_learn_params(cuda)
+    mut = HavocMutator('{"seed": 3}', targets_cgc.tlvstack_vm_seed())
+    drv = driver_factory("file", None, instr, mut)
+    drv.test_batch_generations(2048, 4, pad_to=2048).materialize()
+    torch.cuda.synchronize()
+    before = dict(vk.LAUNCHES)
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        out = drv.test_batch_generations(2000, 4, pad_to=2048).prefetch()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    h = out.materialize()
+    assert h.g == 4 and int(h.fr_ptr) > 0
+    assert vk.LAUNCHES["kbz_vm_kernel_all"] == \
+        before["kbz_vm_kernel_all"] + 4
+    assert vk.LAUNCHES["kbz_fuzz_kernel"] == before["kbz_fuzz_kernel"]

@@ -143,16 +143,18 @@ def test_dispatch_matches_jax(shape, engine, jax_dispatches):
 
 
 def test_tiers_not_ported_are_refused():
-    """learn is refused; the grammar tier (ported) takes the torch and
-    cuda engines, never the fused kernel; sessions take torch."""
+    """Every tier is ported now: learn and grammar take the torch and
+    cuda engines, never the fused kernel, and a learn dispatch needs
+    the weights; sessions take torch."""
     from killerbeez_tpu_torch.grammar.tables import degenerate_tables
     prog = get_target("cgc_like")
     mesh = make_mesh(1, 1, ["cpu"])
-    with pytest.raises(ValueError, match="needs the torch engine"):
+    with pytest.raises(ValueError, match="needs the torch or cuda engine"):
         make_sharded_generations(prog, mesh, 8, 16, engine="cuda_fused",
                                  learn=True)
-    with pytest.raises(ValueError, match="not ported yet"):
-        make_sharded_generations(prog, mesh, 8, 16, learn=True)
+    dispatch = make_sharded_generations(prog, mesh, 8, 16, learn=True)
+    with pytest.raises(ValueError, match="pass the model weights"):
+        dispatch(None, None, 0, 0, 1)
     with pytest.raises(ValueError, match="torch or cuda engine"):
         make_sharded_generations(prog, mesh, 8, 16, engine="cuda_fused",
                                  grammar=degenerate_tables())
