@@ -185,8 +185,8 @@ It builds the CUDA kernels from ``killerbeez_tpu_torch/csrc`` and:
      edge with ``--stateful``, none without) and no kernel launched by
      the stateful runs;
   13. (run before the record) the grammar tier and the target zoo: (a)
-     ``grammar_havoc_at`` on 65536 lanes card == CPU (bytes and
-     lengths) with the degenerate tables and the grammar of each gated
+     ``grammar_havoc_at`` on 65536 lanes on the card, == the CPU on
+     the first 16384 (bytes and lengths) with the degenerate tables and the grammar of each gated
      zoo instance (``models/zoo.GATED_NAMES``), on the card the
      degenerate tables == ``havoc_at``, and its event-span ms per batch;
      (b) through ``cli.main`` at ``PIPELINE_DEPTH = 1``, ``-b 1024`` on
@@ -229,15 +229,42 @@ It builds the CUDA kernels from ``killerbeez_tpu_torch/csrc`` and:
      heartbeats, findings assimilated, ``/metrics`` with
      ``kbz_manager_degraded``, and each process's kernel launches
      printed on a line of their own;
+  15. (run before the record) the hybrid bridge and conformance repair,
+     on target test from ABCD and 60 zero bytes (havoc seed 7): (a)
+     ``proxy_verdict`` of the bindings test and test_safe on the card,
+     one launch of ``kbz_vm_kernel`` over a one-lane batch per verdict
+     (counted: no fallback to the plain VM), on ABCD, hello, the empty
+     input and 1024 seeded random inputs == the CPU's plain VM, and
+     ``certify_binding`` of test, test_safe and a miswired binding card
+     == CPU, with the event-span ms of one one-lane verdict and the host
+     ms per verdict call; (b) ``--hybrid test`` and ``--hybrid
+     test_safe`` at ``-b 64 -n 512``, host-driven and at ``-G 4``, card
+     (cuda_fused) == CPU through ``cli.main`` at ``PIPELINE_DEPTH = 1``
+     with ``--hybrid-workers 0`` (md5 sets, ``cross_tier_validate`` and
+     ``proxy_gap`` events, finding sidecars, gap reports and index,
+     ``hybrid_*`` counters; every finding validated, none dropped); (c)
+     ``--hybrid test_safe --auto-repair 1`` installs
+     ``test_safe+repaired`` (card == CPU), kb-repair ``--probe --apply
+     --require-repaired`` on the card == the CPU's (the same blamed pc
+     and patch), and kb-lint ``--gaps-dir --gap-backlog 0 --sarif`` is
+     clean after it; (d) ``-b 65536`` on test (cuda_fused) with
+     ``--hybrid test`` and without, in turns (with, without, without,
+     with), 32 batches each: execs/s, ``hybrid_validations``,
+     ``hybrid_confirmed``, the deepest and oldest validation queue seen
+     at a fold, and each kernel's launches; these run at ``-fb 0`` from
+     ABCC and 60 zero bytes, since from the padded ABCD a quarter of
+     the lanes are distinct crashing inputs and writing their files
+     takes the run;
   9. prints one ``{"kernels": [...]}`` line (launches: the first
      host-driven, the first ``-G 16``, the first mesh, the first edges,
-     the first rare-edge, the first crack flagship and the first
-     single-shot run of phase 12c together;
+     the first rare-edge, the first crack flagship, the first
+     single-shot run of phase 12c and the first hybrid run of phase 15d
+     together;
      the all-lanes ``kbz_vm_kernel`` row from the mesh's cuda-engine
      run, the unfiltered ``ipt`` run, the rare-edge run's signer, phase
      8c's afl, zzuf and honggfuzz runs, the first crack flagship run,
-     phase 13c's structured and grammar-mutator runs and phase 14c's
-     learn runs), then the
+     phase 13c's structured and grammar-mutator runs, phase 14c's
+     learn runs and the first hybrid run's certification), then the
      card line, then the result line ``{"ok": true, "device": {...}}``
      last.  Each phase's wall
      time is printed as it ends.
@@ -1683,15 +1710,15 @@ def host_triage(fx, card):
 
 def host_flagships(fx, card):
     """10c: ``stdin afl havoc -b HOST_B`` through ``cli.main`` (the
-    default pipeline depth, -fb 0), in turns: afl ``workers`` 8 with
-    ``device_triage`` 0 then 1 (two batches each), then ``workers`` 1
-    with ``device_triage`` 1 then 0 (one batch each).  Prints each
+    default pipeline depth, -fb 0), in turns, one batch each: afl
+    ``workers`` 8 with ``device_triage`` 0 then 1, then ``workers`` 1
+    with ``device_triage`` 1 then 0.  Prints each
     run's execs/s and the share of its wall time the driver spent in
     ``mutate_batch_host``: waiting for the prefetched candidates' host
     copies (the first batch, with nothing prefetched, generates and
     copies there)."""
     from killerbeez_tpu_torch.mutators.base import Mutator
-    plan = [(8, 0, 2), (8, 1, 2), (1, 1, 1), (1, 0, 1)]
+    plan = [(8, 0, 1), (8, 1, 1), (1, 1, 1), (1, 0, 1)]
     orig = Mutator.mutate_batch_host
     waited = [0.0]
 
@@ -2281,6 +2308,9 @@ def stateful_flagships(card, seeds):
 #: phase 13c's full-width run length per lane, in batches of B (2097152
 #: execs: two -G 16 dispatches, 64 times the JAX bench's grammar budget)
 GRAMMAR_BATCHES = 32
+#: phase 13a's CPU half: grammar_havoc_at on the first 16384 of the B
+#: lanes (the CPU's torch ops took most of 13a's 67-90 s at B)
+GRAMMAR_CPU_LANES = 16384
 #: phase 13b's card-against-CPU runs: -b 1024, 16 batches
 GRAMMAR_PARITY = ["-b", "1024", "-n", "16384"]
 
@@ -2302,11 +2332,13 @@ def zoo_files():
 
 
 def grammar_parity(card, files, vk, prng):
-    """13a: grammar_havoc_at on B lanes, card == CPU (bytes and
-    lengths; tolerance: none) with the degenerate tables and each gated
-    instance's grammar, and on the card the degenerate tables against
-    havoc_at; its event-span ms per B-lane batch and the host's enqueue
-    ms.  Returns {grammar: event-span ms}."""
+    """13a: grammar_havoc_at on B lanes on the card, == the CPU on the
+    first GRAMMAR_CPU_LANES of them (bytes and lengths; tolerance: none;
+    lanes are keyed by their iteration, so a prefix is the same lanes)
+    with the degenerate tables and each gated instance's grammar, and on
+    the card the degenerate tables against havoc_at on all B lanes; its
+    event-span ms per B-lane batch and the host's enqueue ms.  Returns
+    {grammar: event-span ms}."""
     from killerbeez_tpu_torch.grammar import compile_grammar
     from killerbeez_tpu_torch.grammar.device import grammar_havoc_at
     from killerbeez_tpu_torch.grammar.tables import degenerate_tables
@@ -2322,11 +2354,13 @@ def grammar_parity(card, files, vk, prng):
         seed = torch.zeros(64, dtype=torch.uint8)
         seed[:len(sb)] = torch.tensor(list(sb), dtype=torch.uint8)
         outs = []
-        for dev in ("cuda", "cpu"):
-            keys = prng.fold_in(prng.key(MUT_SEED, device=dev), its.to(dev))
+        for dev, n in (("cuda", B), ("cpu", GRAMMAR_CPU_LANES)):
+            keys = prng.fold_in(prng.key(MUT_SEED, device=dev),
+                                its[:n].to(dev))
             args = (seed.to(dev), len(sb), keys, tables, tables.device(dev))
             outs.append(grammar_havoc_at(*args))
-        err = max_abs_err([t.cpu() for t in outs[0]], outs[1])
+        err = max_abs_err([t[:GRAMMAR_CPU_LANES].cpu() for t in outs[0]],
+                          outs[1])
         if name == "degenerate":
             keys = prng.fold_in(prng.key(MUT_SEED, device="cuda"),
                                 its.cuda())
@@ -2340,9 +2374,10 @@ def grammar_parity(card, files, vk, prng):
         args = (seed.cuda(), len(sb), keys, tables, tables.device("cuda"))
         ms[name] = timed(lambda: grammar_havoc_at(*args), 5)
         enqueue = host_ms(lambda: grammar_havoc_at(*args), 5)
-        changed = int((outs[1][0] != seed[None, :]).any(1).sum())
+        changed = int((outs[0][0].cpu() != seed[None, :]).any(1).sum())
         print(f"grammar_havoc_at ({name}, {B} lanes, {tables.meta[2]} "
-              f"field entries): card == CPU (max_abs_err 0"
+              f"field entries): card == CPU on the first "
+              f"{GRAMMAR_CPU_LANES} (max_abs_err 0"
               f"{'; == havoc_at on the card' if name == 'degenerate' else ''}"
               f"; {changed} lanes changed); event span {ms[name]:.3f} ms "
               f"per batch, host enqueue {enqueue:.3f} ms [{card}]",
@@ -3037,6 +3072,332 @@ def fleet_run(card):
     return launches
 
 
+# -- the hybrid bridge and conformance repair (phase 15) ------------------
+
+#: phase 15d's full-width run length, in batches of B
+HYBRID_BATCHES = 32
+#: phase 15's campaigns on target test: havoc seed 7 from ABCD and 60
+#: zero bytes (most lanes keep the planted prefix; from the bare 4-byte
+#: ABCD the havoc stream never runs it within 512 execs)
+HYBRID_MOPTS = {"seed": 7}
+#: wall-clock fields and the event envelope, dropped before phase 15's
+#: card and CPU records are compared
+HYBRID_CLOCK = ("t", "ts", "v", "seq", "wall_s", "seconds")
+
+
+def hybrid_seed(head: bytes = b"ABCD") -> Path:
+    path = OUT / f"hybrid_seed_{head.decode()}.bin"
+    path.write_bytes(head + bytes(60))
+    return path
+
+
+def hybrid_norm(obj, root):
+    """``obj`` without wall-clock fields, with ``root`` made relative."""
+    if isinstance(obj, dict):
+        return {k: hybrid_norm(v, root) for k, v in obj.items()
+                if k not in HYBRID_CLOCK}
+    if isinstance(obj, list):
+        return [hybrid_norm(v, root) for v in obj]
+    if isinstance(obj, str):
+        return obj.replace(str(root), "<out>")
+    return obj
+
+
+@contextlib.contextmanager
+def bridges():
+    """Capture every bridge the CLI makes: its campaign's registry, and
+    the deepest and oldest validation queue seen at a fold."""
+    import killerbeez_tpu_torch.hybrid as hybrid
+    made, make = [], hybrid.make_bridge
+
+    def capture(*args, **kwargs):
+        bridge = make(*args, **kwargs)
+        fold = bridge.fold
+        bridge.peak = [0, 0.0]
+
+        def fold_and_watch(fuzzer):
+            bridge.registry = fuzzer.telemetry.registry
+            bridge.peak = [max(bridge.peak[0], bridge.queue.depth()),
+                           max(bridge.peak[1], bridge.queue.oldest_age())]
+            return fold(fuzzer)
+        bridge.fold = fold_and_watch
+        made.append(bridge)
+        return bridge
+    hybrid.make_bridge = capture
+    try:
+        yield made
+    finally:
+        hybrid.make_bridge = make
+
+
+def hybrid_cli(name, args, seed):
+    """The CLI with a hybrid bridge, in this process at PIPELINE_DEPTH =
+    1; returns what the card and the CPU must agree on."""
+    from killerbeez_tpu_torch.fuzzer.loop import Fuzzer
+    depth = Fuzzer.PIPELINE_DEPTH
+    Fuzzer.PIPELINE_DEPTH = 1
+    try:
+        with bridges() as made:
+            _, out = run_cli(["-b", "64", "-n", "512", "--hybrid-workers",
+                              "0", *args], name, mopts=HYBRID_MOPTS,
+                             seed=seed)
+    finally:
+        Fuzzer.PIPELINE_DEPTH = depth
+    [bridge] = made
+
+    def jdir(d):
+        return {n: hybrid_norm(json.loads((d / n).read_text()), out)
+                for n in sorted(os.listdir(d)) if n.endswith(".json")} \
+            if d.is_dir() else {}
+    counters = bridge.registry.snapshot()["counters"]
+    return {
+        "findings": {k: sorted(n for n in os.listdir(out / k) if len(n) == 32)
+                     for k in ("crashes", "hangs", "new_paths")},
+        "events": [hybrid_norm(e, out) for e in events(out) if e["type"] in
+                   ("cross_tier_validate", "proxy_gap", "proxy_repair")],
+        "sidecars": jdir(out / "crashes"),
+        "gaps": jdir(out / "proxy_gaps"),
+        "counters": {k: v for k, v in counters.items()
+                     if k.startswith(("hybrid_", "repair_"))},
+        "bridge": [bridge.validated, bridge.enqueued, bridge.queue.dropped],
+    }
+
+
+def hybrid_verdicts(card, vk):
+    """15a: proxy verdicts on the card.  ``proxy_verdict`` of the
+    bindings test and test_safe on ABCD, hello, the empty input and 1024
+    seeded random inputs (half of them starting with a prefix of ABCD),
+    each one launch of kbz_vm_kernel over a one-lane batch, against the
+    CPU's plain VM over all of them in one batch (lanes are independent,
+    and the VM reads no input byte at or past a lane's length) and the
+    CPU's one-lane path on the first 32; ``certify_binding`` of test,
+    test_safe and a miswired binding card == CPU.  Prints the event-span
+    ms of one one-lane verdict and the host ms per proxy_verdict call.
+    Returns the card verdicts' launches."""
+    from killerbeez_tpu_torch import FUZZ_HANG, FUZZ_RUNNING
+    from killerbeez_tpu_torch.hybrid import registry
+    from killerbeez_tpu_torch.models.targets import get_target
+    from killerbeez_tpu_torch.native import build
+    from killerbeez_tpu_torch.tools.timing import timed
+    build.build_corpus(["test-plain", "hybrid-safe"])
+    g = torch.Generator().manual_seed(MUT_SEED)
+    bufs = [b"ABCD", b"hello", b""]
+    for i in range(1024):
+        n = int(torch.randint(1, 17, (1,), generator=g))
+        x = bytes(torch.randint(0, 256, (n,), generator=g).tolist())
+        if i % 2:
+            k = int(torch.randint(0, 5, (1,), generator=g))
+            x = (b"ABCD"[:k] + x)[:n]
+        bufs.append(x)
+    prog = get_target("test")
+    inputs = torch.zeros((len(bufs), max(map(len, bufs))), dtype=torch.uint8)
+    for i, b in enumerate(bufs):
+        inputs[i, :len(b)] = torch.tensor(list(b), dtype=torch.uint8)
+    lengths = torch.tensor([len(b) for b in bufs], dtype=torch.int32)
+    status = vk.run_batch(torch.as_tensor(prog.instrs),
+                          torch.as_tensor(prog.edge_table), inputs, lengths,
+                          prog.mem_size, prog.max_steps, prog.n_edges).status
+    want = [FUZZ_HANG if s == FUZZ_RUNNING else s for s in status.tolist()]
+    test = registry.get_binding("test")
+    if [registry.proxy_verdict(test, b, "cpu") for b in bufs[:32]] != \
+            want[:32]:
+        raise AssertionError("the CPU's one-lane proxy verdicts differ from "
+                             "its batched plain VM")
+    launched, host_ms = 0, []
+    for name in ("test", "test_safe"):
+        binding = registry.get_binding(name)
+        before = vk.LAUNCHES["kbz_vm_kernel_all"]
+        t0 = time.perf_counter()
+        got = [registry.proxy_verdict(binding, b, "cuda") for b in bufs]
+        host_ms.append((time.perf_counter() - t0) * 1e3 / len(bufs))
+        n = vk.LAUNCHES["kbz_vm_kernel_all"] - before
+        launched += n
+        if n != len(bufs):
+            raise AssertionError(f"{name}: {n} kbz_vm_kernel launches for "
+                                 f"{len(bufs)} proxy verdicts on the card")
+        if got != want:
+            bad = [i for i, (a, b) in enumerate(zip(got, want)) if a != b]
+            raise AssertionError(f"{name}: card proxy verdicts differ from "
+                                 f"the CPU's at inputs {bad[:8]}")
+    safe = registry.get_binding("test_safe")
+    broken = registry.ProxyBinding(name="broken", proxy_target="test",
+                                   native=safe.native, benign_seed=b"ABCD")
+    certs = {}
+    for binding in (test, safe, broken):
+        card_rec = registry.certify_binding(binding, "cuda")
+        if card_rec != registry.certify_binding(binding, "cpu"):
+            raise AssertionError(f"certify_binding({binding.name}): card "
+                                 f"and CPU records differ")
+        certs[binding.name] = card_rec["certified"]
+    if certs != {"test": True, "test_safe": True, "broken": False}:
+        raise AssertionError(f"certification verdicts {certs}")
+    dev = torch.device("cuda")
+    one = torch.tensor([list(b"ABCD")], dtype=torch.uint8, device=dev)
+    one_len = torch.tensor([4], dtype=torch.int32, device=dev)
+    instrs = torch.as_tensor(prog.instrs, device=dev)
+    table = torch.as_tensor(prog.edge_table, device=dev)
+    span = timed(lambda: vk.run_batch(instrs, table, one, one_len,
+                                      prog.mem_size, prog.max_steps,
+                                      prog.n_edges), 15)
+    counts = {v: want.count(v) for v in sorted(set(want))}
+    print(f"proxy verdicts on {card}: card == CPU on {len(bufs)} inputs x "
+          f"bindings test, test_safe (verdicts {counts}), {launched} "
+          f"kbz_vm_kernel launches over one lane; certification card == "
+          f"CPU {certs}; one one-lane verdict {span:.4f} ms event span; "
+          f"host ms per proxy_verdict call (program, upload, launch, wait) "
+          f"{', '.join(f'{m:.3f}' for m in host_ms)}", flush=True)
+    return launched
+
+
+def hybrid_cli_parity(seed):
+    """15b: ``--hybrid test`` and ``--hybrid test_safe`` from the padded
+    seed, -b 64 -n 512, host-driven and at -G 4, card (cuda_fused)
+    against CPU (torch) through cli.main at PIPELINE_DEPTH = 1 with
+    --hybrid-workers 0: md5 sets, cross_tier_validate and proxy_gap
+    events, crashes/<md5>.json sidecars, proxy_gaps/ reports and index,
+    hybrid_* counters equal; every queued finding validated, none
+    dropped; test confirmed, test_safe proxy_only with a gap report."""
+    rows = []
+    for binding in ("test", "test_safe"):
+        for mode, extra in (("host", []), ("g4", ["-G", "4"])):
+            got = {}
+            for dev, engine in (("cuda", "cuda_fused"), ("cpu", "torch")):
+                got[dev] = hybrid_cli(
+                    f"hybrid_{binding}_{mode}_{dev}",
+                    ["--hybrid", binding, "--device", dev, "-i",
+                     json.dumps({"target": "test", "engine": engine}),
+                     *extra], seed)
+            diff = [k for k in got["cuda"] if got["cuda"][k] != got["cpu"][k]]
+            if diff:
+                raise AssertionError(f"--hybrid {binding} ({mode}): card "
+                                     f"and CPU differ in {diff}")
+            validated, enqueued, dropped = got["cuda"]["bridge"]
+            verdicts = {e["verdict"] for e in got["cuda"]["events"]
+                        if e["type"] == "cross_tier_validate"}
+            want = {"confirmed"} if binding == "test" else {"proxy_only"}
+            if validated != enqueued or not enqueued or dropped or \
+                    verdicts != want or \
+                    bool(got["cuda"]["gaps"]) != (binding == "test_safe"):
+                raise AssertionError(f"--hybrid {binding} ({mode}): "
+                                     f"{validated}/{enqueued} validated, "
+                                     f"{dropped} dropped, verdicts "
+                                     f"{verdicts}, gap files "
+                                     f"{sorted(got['cuda']['gaps'])}")
+            rows.append(f"{binding} {mode}: {enqueued} validated "
+                        f"{sorted(verdicts)}")
+    print("hybrid CLI card == CPU (PIPELINE_DEPTH 1, -b 64 -n 512): "
+          + "; ".join(rows), flush=True)
+
+
+def hybrid_repair(seed):
+    """15c: the repair loop on the card.  ``--hybrid test_safe
+    --auto-repair 1`` installs test_safe+repaired (card == CPU, the
+    repairs.json ledger included); kb-repair --binding test_safe --probe
+    --apply --require-repaired --json on the card exits 0, launches
+    kbz_vm_kernel for its probe's verdicts and gives the CPU's result
+    (the same blamed pc and patch); kb-lint --gaps-dir --gap-backlog 0
+    --sarif is clean after the repair."""
+    from killerbeez_tpu_torch.ops.vm_kernel import LAUNCHES
+    from killerbeez_tpu_torch.tools import lint_tool, repair_tool
+    got = {}
+    for dev, engine in (("cuda", "cuda_fused"), ("cpu", "torch")):
+        got[dev] = hybrid_cli(
+            f"hybrid_autorepair_{dev}",
+            ["--hybrid", "test_safe", "--auto-repair", "1", "--device", dev,
+             "-i", json.dumps({"target": "test", "engine": engine})], seed)
+    diff = [k for k in got["cuda"] if got["cuda"][k] != got["cpu"][k]]
+    if diff:
+        raise AssertionError(f"--auto-repair: card and CPU differ in {diff}")
+    [ev] = [e for e in got["cuda"]["events"] if e["type"] == "proxy_repair"]
+    if ev["installed"] != "test_safe+repaired":
+        raise AssertionError(f"--auto-repair installed {ev['installed']}")
+    tools = {}
+    for dev in ("cuda", "cpu"):
+        d = OUT / f"kb_repair_{dev}"
+        shutil.rmtree(d, ignore_errors=True)
+        before = LAUNCHES["kbz_vm_kernel_all"]
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            rc = repair_tool.main(["--binding", "test_safe", "--gaps-dir",
+                                   str(d), "--probe", "--apply", "--json",
+                                   "--require-repaired", "--device", dev])
+        launched = LAUNCHES["kbz_vm_kernel_all"] - before
+        result = hybrid_norm(json.loads(buf.getvalue()), d)
+        lint = io.StringIO()
+        with contextlib.redirect_stdout(lint):
+            lint_rc = lint_tool.main(["--gaps-dir", str(d), "--gap-backlog",
+                                      "0", "--sarif"])
+        results = json.loads(lint.getvalue())["runs"][0]["results"]
+        if rc or result["status"] != "repaired" or lint_rc or results:
+            raise AssertionError(f"kb-repair --device {dev}: exit {rc}, "
+                                 f"{result['status']}; kb-lint exit "
+                                 f"{lint_rc}, {len(results)} results")
+        tools[dev] = (result, launched)
+    if tools["cuda"][0] != tools["cpu"][0] or tools["cuda"][1] <= 0:
+        raise AssertionError(f"kb-repair: card and CPU results differ, or "
+                             f"no kernel launched on the card "
+                             f"({tools['cuda'][1]} launches)")
+    [cl] = tools["cuda"][0]["clusters"]
+    print(f"repair loop on the card: --auto-repair 1 installed "
+          f"{ev['installed']} (card == CPU); kb-repair --probe --apply on "
+          f"the card == CPU: blame pc {cl['blame']['pc']} (const "
+          f"{cl['blame']['const']}), patch {cl['patch_desc']}, installed "
+          f"{tools['cuda'][0]['installed']}, {tools['cuda'][1]} "
+          f"kbz_vm_kernel launches; kb-lint --gaps-dir --sarif clean after "
+          f"the repair", flush=True)
+
+
+def hybrid_flagships(card, seed):
+    """15d: file jit_harness havoc -b 65536 -fb 0 on test (cuda_fused)
+    from ABCC and 60 zero bytes, with --hybrid test (one native worker)
+    and without, in turns (with, without, without, with),
+    HYBRID_BATCHES batches each: exit 0, kbz_fuzz_kernel launched, the
+    same findings in all four runs (the bridge never changes the
+    candidates); per hybrid run its validations, confirmed verdicts
+    (every one confirmed, none dropped) and the deepest and oldest
+    validation queue seen at a fold.  From the padded ABCD seed, or with
+    corpus feedback onto an admitted crashing input, a quarter of the
+    lanes are distinct crashing inputs, and writing their files takes
+    the run (8.6-16.0 s per batch); from ABCC a lane crashes only where
+    havoc writes the D.  Returns the first hybrid run's launches."""
+    iopts = {"target": "test", "engine": "cuda_fused"}
+    rows, first, found = [], None, []
+    for i, lane in enumerate(("hybrid", "plain", "plain", "hybrid")):
+        extra = ["--hybrid", "test"] if lane == "hybrid" else []
+        with bridges() as made:
+            launches, rate, out = flagship(
+                f"hybrid_flagship_{lane}_{i}", "-fb", "0", *extra,
+                batches=HYBRID_BATCHES, iopts=iopts,
+                need=("kbz_fuzz_kernel",), seed=seed)
+        found.append({k: sorted(n for n in v if len(n) == 32)
+                      for k, v in findings(out).items()})
+        if found[-1] != found[0] or not found[0]["crashes"]:
+            raise AssertionError(f"hybrid flagship {lane} {i}: findings "
+                                 f"differ from the first run's, or no "
+                                 f"crash")
+        if lane == "plain":
+            rows.append(f"plain {rate:.0f} execs/s")
+            continue
+        [bridge] = made
+        c = bridge.registry.snapshot()["counters"]
+        n = int(c.get("hybrid_validations", 0))
+        ok = int(c.get("hybrid_confirmed", 0))
+        if not n or ok != n or bridge.queue.dropped:
+            raise AssertionError(f"hybrid flagship: {ok}/{n} confirmed, "
+                                 f"{bridge.queue.dropped} dropped")
+        rows.append(f"hybrid {rate:.0f} execs/s, hybrid_validations {n}, "
+                    f"hybrid_confirmed {ok}, validation_queue_depth at most "
+                    f"{bridge.peak[0]}, validation_queue_age at most "
+                    f"{bridge.peak[1]:.3f} s, launches {launches}")
+        first = first or launches
+    print(f"hybrid flagships on {card} ({HYBRID_BATCHES} batches of {B}, "
+          f"target test, -fb 0, in turns hybrid, plain, plain, hybrid; "
+          f"{len(found[0]['crashes'])} crash files and "
+          f"{len(found[0]['new_paths'])} new paths in each): "
+          + "; ".join(rows), flush=True)
+    return first
+
+
 class Phases:
     """Prints each phase's wall time as the next one starts."""
 
@@ -3477,6 +3838,19 @@ def main() -> int:
     fleet_launches = fleet_run(card)
     print(f"phase 14: {time.perf_counter() - t14:.1f} s wall", flush=True)
 
+    # -- phase 15: the hybrid bridge and conformance repair ------------
+    t15 = time.perf_counter()
+    phases.start("15a (proxy verdicts card == CPU)")
+    hseed = hybrid_seed()
+    hybrid_verdicts(card, vk)
+    phases.start("15b (hybrid CLI card == CPU)")
+    hybrid_cli_parity(hseed)
+    phases.start("15c (repair loop)")
+    hybrid_repair(hseed)
+    phases.start("15d (hybrid flagships)")
+    hybrid_launches = hybrid_flagships(card, hybrid_seed(b"ABCC"))
+    print(f"phase 15: {time.perf_counter() - t15:.1f} s wall", flush=True)
+
     # -- phase 9: the record -------------------------------------------
     phases.start("9 (record)")
     print(f"main-path launches: host-driven {launches}, -G 16 "
@@ -3487,13 +3861,14 @@ def main() -> int:
           f"{crack_launches}, stateful: none (phase 12's single-shot lane "
           f"{single_launches}), grammar {grammar_launches}, learn "
           f"{learn_launches} (fleet workers, in their own processes: "
-          f"{fleet_launches}); over this "
+          f"{fleet_launches}), hybrid {hybrid_launches}; over this "
           f"whole run: {vk.LAUNCHES}, of which in its CLI runs "
           f"{CLI_LAUNCHES}",
           flush=True)
     launches = {k: launches[k] + gen_launches[k] + mesh_launches[0][k]
                 + mesh_launches[1][k] + edges_launches[k] + rare_launches[k]
                 + crack_launches[k] + single_launches[k]
+                + hybrid_launches[k]
                 for k in launches}
     all_lanes = (vm_all_launches["kbz_vm_kernel_all"]
                  + ipt_launches["kbz_vm_kernel_all"]
@@ -3501,6 +3876,7 @@ def main() -> int:
                  + crack_launches["kbz_vm_kernel_all"]
                  + grammar_launches["kbz_vm_kernel_all"]
                  + learn_launches["kbz_vm_kernel_all"]
+                 + hybrid_launches["kbz_vm_kernel_all"]
                  + sum(m["kbz_vm_kernel_all"]
                        for m in mut_launches.values()))
     kernels = [

@@ -14,7 +14,8 @@ fall back to the CPU.
 Package map (the flagship fuzz loop, the CLI's default campaign, its
 device-resident generation loop, the mesh campaign, the trace surface,
 every mutator, the host-execution tier, the crack and search tier, the
-stateful session tier, the grammar tier and the target zoo):
+stateful session tier, the grammar tier and the target zoo, the learn
+tier, the fleet, and the hybrid bridge with conformance repair):
   utils/            logging, JSON option parsing, state serialization
   models/           the KBVM bytecode VM (plain torch engines, with the
                     edge stream and the single-lane reference) + targets,
@@ -39,9 +40,14 @@ stateful session tier, the grammar tier and the target zoo):
                     sync, gossip and quarantine
   manager/          the fleet manager (REST + work queue) and its
                     worker
-  hybrid/           the per-tier fleet reconciliation
-  analysis/         the block CFG, the static edge prior and the
-                    dataflow analysis behind the auto-dictionary
+  hybrid/           the native⇄device bridge: proxy bindings and their
+                    certification (proxy verdicts through kbz_vm_kernel),
+                    seed translation, cross-tier validation, proxy-gap
+                    storage and the per-tier fleet reconciliation
+  analysis/         the block CFG, the static edge prior, the dataflow
+                    analysis behind the auto-dictionary, the solver,
+                    value sets, and conformance and repair over
+                    proxy-gap counterexamples
   stateful/         the session tier: sequence framing, the session
                     executor (plain torch on the card), state x edge
                     triage, the protocol analysis and per-message
@@ -50,10 +56,12 @@ stateful session tier, the grammar tier and the target zoo):
   resilience/       chaos points, checkpoints, the dispatch watchdog,
                     the supervisor (kbz-supervise), fleetsim
   parallel/         the mesh campaign (--mesh dp,mp)
-  fuzzer/           the batched main loop (corpus feedback) + CLI
+  fuzzer/           the batched main loop (corpus feedback), the crack
+                    and repair stages + CLI
   tools/            tracer, showmap, merger, minimize, picker, kb-solve,
                     kb-lint, kb-descend, kb-zoo, kb-corpus, kb-timeline,
-                    kb-stats, kb-fleet, and diagnostics run on the card
+                    kb-stats, kb-fleet, kb-repair, and diagnostics run
+                    on the card
 """
 
 __version__ = "0.1.0"

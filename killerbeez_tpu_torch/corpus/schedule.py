@@ -112,14 +112,23 @@ class Scheduler:
     #: policy so observability and resume see comparable stats)
     DECAY = 0.8
 
+    #: find-equivalent credit for a native-confirmed verdict (hybrid
+    #: bridge): ground truth on the real binary is worth a full find
+    CONFIRM_CREDIT = 1.0
+
+    #: cap on the remembered confirmed-md5 set (enough for any real
+    #: campaign; bounds resume state)
+    CONFIRM_CAP = 4096
+
     def __init__(self, cap: Optional[int] = None):
         self.arms: List[Arm] = []
         self.base_stats: List[float] = [0.0, 0.0]  # [selections, finds]
         self.base_seed: Optional[bytes] = None
         self.rotations = 0
-        #: md5s whose findings the JAX package's native tier confirmed
-        #: (its hybrid bridge, not ported): carried through the
-        #: checkpoint so a resumed hybrid campaign keeps them
+        #: md5s whose findings the native tier confirmed on the real
+        #: binary (hybrid bridge write-back, ``note_validation``) — the
+        #: cross-tier credit boost keys off membership here; carried
+        #: through the checkpoint so a resumed hybrid campaign keeps them
         self.confirmed_md5s: set = set()
         if cap is not None:
             self.CAP = int(cap)
@@ -201,6 +210,27 @@ class Scheduler:
             self.base_stats[0] += 1
         else:
             active[1] += 1
+
+    def note_validation(self, md5: str, verdict: str,
+                        parent: Optional[str] = None) -> None:
+        """Fold one cross-tier verdict (hybrid bridge).  A
+        ``confirmed`` verdict — the finding reproduced on the real
+        native binary — marks the finding AND its generating seed
+        (``parent``) confirmed, and credits any arm carrying either
+        md5 with a find-equivalent boost (RareEdgeScheduler
+        additionally sharpens their rarity).  Idempotent per finding
+        md5; other verdicts are recorded nowhere here (proxy_only
+        feeds the proxy-gap report, not scheduling).  With no hybrid
+        bridge attached this is never called, so every policy's
+        ordering is exactly the unbridged one."""
+        if verdict != "confirmed" or md5 in self.confirmed_md5s:
+            return
+        for m in (md5, parent):
+            if m and len(self.confirmed_md5s) < self.CONFIRM_CAP:
+                self.confirmed_md5s.add(m)
+        for arm in self.arms:
+            if arm.md5 == md5 or (parent and arm.md5 == parent):
+                arm[2] += self.CONFIRM_CREDIT
 
     # -- selection ------------------------------------------------------
 
@@ -345,8 +375,8 @@ class RareEdgeScheduler(Scheduler):
     name = "rare-edge"
 
     #: rarity scale for arms whose md5 is in ``confirmed_md5s`` (the
-    #: JAX package's hybrid tier, carried through checkpoints): a
-    #: confirmed seed's rarest edge counts as half as common
+    #: hybrid tier's native confirmations): a confirmed seed's rarest
+    #: edge counts as half as common
     CONFIRM_RARITY_SCALE = 0.5
 
     def __init__(self, cap: Optional[int] = None,

@@ -293,6 +293,70 @@ class CorpusStore:
             WARNING_MSG("corpus sidecar update failed for %s: %s",
                         entry.md5, e)
 
+    def update_validation(self, md5: str,
+                          validation: Dict[str, Any]) -> bool:
+        """Fold a cross-tier verdict into one entry's sidecar (hybrid
+        bridge write-back).  Reads the sidecar as stored rather than
+        regenerating it from an in-memory entry so concurrently
+        flushed stats are not clobbered; returns False when no
+        sidecar exists for ``md5`` (findings that never became corpus
+        entries live only in the findings sidecar)."""
+        path = self.meta_path(md5)
+        try:
+            with open(path) as f:
+                meta = json.load(f)
+        except (OSError, ValueError):
+            return False
+        meta["validation"] = dict(validation)
+        try:
+            _atomic_write(path, json.dumps(meta).encode())
+        except OSError as e:
+            WARNING_MSG("corpus validation update failed for %s: %s",
+                        md5, e)
+            return False
+        return True
+
+    def update_repair(self, md5: str,
+                      repair: Dict[str, Any]) -> bool:
+        """Fold a repair verdict into one entry's ``validation``
+        block (``validation.repair``: verdict, patch/reason, t).
+        Entries without a validation block are skipped — a repair
+        claim only makes sense on a cross-tier-validated finding."""
+        path = self.meta_path(md5)
+        try:
+            with open(path) as f:
+                meta = json.load(f)
+        except (OSError, ValueError):
+            return False
+        val = meta.get("validation")
+        if not isinstance(val, dict):
+            return False
+        val["repair"] = dict(repair)
+        try:
+            _atomic_write(path, json.dumps(meta).encode())
+        except OSError as e:
+            WARNING_MSG("corpus repair update failed for %s: %s",
+                        md5, e)
+            return False
+        return True
+
+    def remove(self, md5: str) -> None:
+        """Delete one entry and its sidecar (kb-corpus compact)."""
+        for p in (self.entry_path(md5), self.meta_path(md5)):
+            try:
+                os.unlink(p)
+            except OSError:
+                pass
+
+    def __len__(self) -> int:
+        try:
+            return sum(1 for n in os.listdir(self.root)
+                       if n not in _RESERVED
+                       and not n.endswith((".json", ".tmp", ".prev"))
+                       and os.path.isfile(os.path.join(self.root, n)))
+        except OSError:
+            return 0
+
     def load(self) -> List[CorpusEntry]:
         """Every readable entry, in admission (seq) order.  A missing
         or torn sidecar degrades to default metadata — the input bytes

@@ -31,9 +31,10 @@ prior.  ``--crack N`` solves never-hit static edges into inputs after
 N finding-free batches and injects them (``--vsa`` seeds the solver
 from the value-set fixpoint, ``--descend M`` escalates the solver's
 unknowns to branch-distance descent, ``--no-focus`` keeps the mutators
-unfocused).  Runs on the CUDA card unless ``--device cpu`` is given.
-Flags whose machinery is not ported yet are accepted by the parser and
-refused with exit status 2, naming the flag.
+unfocused).  ``--hybrid BINDING`` certifies a proxy⇄native binding
+(the proxy's verdicts on ``--device``) and validates every unique
+finding on the real native binary (``--auto-repair N`` adds the plateau
+repair stage).  Runs on the CUDA card unless ``--device cpu`` is given.
 Exit 86: the watchdog killed a stuck device wait; exit 87: the card
 was lost (both after a checkpoint, for a supervisor to ``--resume``).
 """
@@ -58,16 +59,6 @@ from ..ops.vm_kernel import LAUNCHES
 from ..utils.fileio import read_file, write_buffer_to_file
 from ..utils.logging import FatalError, INFO_MSG, setup_logging
 from .loop import Fuzzer
-
-# (flags, nargs) of the reference CLI's options whose machinery is not
-# ported yet: parsed, then refused
-UNPORTED = (
-    (("--hybrid",), None), (("--hybrid-repeats",), None),
-    (("--hybrid-queue",), None), (("--hybrid-workers",), None),
-    (("--auto-repair",), "?"),
-)
-_NOT_GIVEN = object()
-
 
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
@@ -126,6 +117,42 @@ def build_parser() -> argparse.ArgumentParser:
                         "holding the corpus-wide rarest edges, each "
                         "admission signed by one extra execution; rr: "
                         "round-robin)")
+    p.add_argument("--hybrid", metavar="BINDING", default=None,
+                   help="hybrid native⇄device campaign (docs/HYBRID.md): "
+                        "certify the named proxy binding (a binding "
+                        "whose benign seed diverges across tiers is "
+                        "refused), then validate every unique finding "
+                        "on the real native binary — confirmed/"
+                        "proxy_only/flaky verdicts land in corpus "
+                        "sidecars and the event stream, proxy_only "
+                        "divergences emit machine-readable proxy-gap "
+                        "reports under <output>/proxy_gaps/.  Built-ins: "
+                        "test, test_safe")
+    p.add_argument("--hybrid-repeats", type=int, default=3, metavar="N",
+                   help="native replays per finding before a verdict "
+                        "(default 3: all crash = confirmed, none = "
+                        "proxy_only, else flaky; clamped to 64, the "
+                        "sidecar schema's statuses bound)")
+    p.add_argument("--hybrid-queue", type=int, default=256, metavar="N",
+                   help="validation queue bound (default 256); a full "
+                        "queue rejects new findings with a counted, "
+                        "logged drop — never silently")
+    p.add_argument("--hybrid-workers", type=int, default=1, metavar="N",
+                   help="native validator threads (default 1; 0 = "
+                        "validate synchronously at the end of the run — "
+                        "deterministic, for tests)")
+    p.add_argument("--auto-repair", type=int, nargs="?", const=16,
+                   default=0, metavar="N",
+                   help="with --hybrid: plateau auto-repair stage — "
+                        "after N batches with no new paths (default 16 "
+                        "when bare), run the counterexample-guided "
+                        "repair pass over the accumulated proxy-gap "
+                        "reports: localize the diverging guard, search "
+                        "the bounded patch space, and install a "
+                        "<binding>+repaired binding ONLY when the patch "
+                        "is verdict-identical to the native tier on "
+                        "every gap input + certification seed (else an "
+                        "honest unrepairable verdict)")
     p.add_argument("--crack", type=int, nargs="?", const=16, default=0,
                    metavar="N",
                    help="plateau crack stage (KBVM targets): "
@@ -331,9 +358,6 @@ def build_parser() -> argparse.ArgumentParser:
                         "for the mesh-resident generation scan")
     p.add_argument("--list", action="store_true",
                    help="list components and their options, then exit")
-    for flags, nargs in UNPORTED:
-        p.add_argument(*flags, nargs=nargs, default=_NOT_GIVEN,
-                       help="not ported yet")
     return p
 
 
@@ -395,12 +419,6 @@ def _wire_static_prior(fuzzer, driver) -> None:
 
 def main(argv: Optional[List[str]] = None) -> int:
     args = build_parser().parse_args(argv)
-    for flags, _ in UNPORTED:
-        dest = flags[-1].lstrip("-").replace("-", "_")
-        if getattr(args, dest) is not _NOT_GIVEN:
-            print(f"error: {'/'.join(flags)} is not ported yet",
-                  file=sys.stderr)
-            return 2
     if args.list:
         print(list_components())
         return 0
@@ -547,6 +565,20 @@ def main(argv: Optional[List[str]] = None) -> int:
                 train_interval_s=args.learn_interval,
                 max_len=getattr(mutator, "max_length", 4096),
                 device=args.device)
+        hybrid_bridge = None
+        if args.hybrid:
+            from ..hybrid import CertificationError, make_bridge
+            try:
+                hybrid_bridge = make_bridge(
+                    args.hybrid, repeats=args.hybrid_repeats,
+                    queue_cap=args.hybrid_queue,
+                    workers=args.hybrid_workers, device=args.device)
+            except (KeyError, CertificationError, RuntimeError) as e:
+                # stand-down rule (docs/HYBRID.md): no native substrate
+                # or a divergent binding -> refuse the hybrid campaign
+                # rather than run one that cannot validate anything
+                print(f"error: {e}", file=sys.stderr)
+                return 2
 
         fuzzer = Fuzzer(driver, output_dir=args.output,
                         batch_size=args.batch_size,
@@ -563,7 +595,19 @@ def main(argv: Optional[List[str]] = None) -> int:
                         watchdog=watchdog,
                         profile_device=args.profile_device,
                         generations=args.generations,
-                        sync=sync, learn=learn_tier)
+                        sync=sync, learn=learn_tier,
+                        hybrid=hybrid_bridge)
+        native_beat = None
+        if hybrid_bridge is not None and args.sync_manager:
+            # the native tier as a fleet citizen: its own heartbeat row
+            # (meta tier "native") beside the device worker's, so
+            # kb-fleet's per-tier fold sees both
+            from ..hybrid import NativeHeartbeat
+            native_beat = NativeHeartbeat(
+                hybrid_bridge, args.sync_manager, args.sync_campaign,
+                args.sync_worker or f"worker-{os.getpid()}",
+                interval=args.sync_interval)
+            native_beat.start()
         if args.schedule == "rare-edge":
             _wire_rare_edge_signer(fuzzer, driver)
             _wire_static_prior(fuzzer, driver)
@@ -602,6 +646,16 @@ def main(argv: Optional[List[str]] = None) -> int:
                 descend_engine=args.descend_engine,
                 descend_scan_iters=args.descend_scan_iters,
                 vsa=args.vsa, device=args.device)
+        if args.auto_repair:
+            if hybrid_bridge is None:
+                print("error: --auto-repair consumes the hybrid tier's "
+                      "proxy-gap reports — it needs --hybrid",
+                      file=sys.stderr)
+                return 2
+            from .repairer import ProxyRepairer
+            fuzzer.repairer = ProxyRepairer(
+                hybrid_bridge, plateau_batches=args.auto_repair,
+                device=args.device)
         try:
             stats = fuzzer.run(args.iterations)
         except Exception as e:
@@ -616,6 +670,9 @@ def main(argv: Optional[List[str]] = None) -> int:
                 print(f"error: device lost: {e}", file=sys.stderr)
                 return DEVICE_LOST_EXIT_CODE
             raise
+        finally:
+            if native_beat is not None:
+                native_beat.stop()      # posts one parting beat
         # both rates read the SAME registry the loop recorded into
         INFO_MSG(
             "results: %d crashes (%d unique), %d hangs (%d unique), "

@@ -61,7 +61,13 @@ or corpus/gossip.py, CLI ``--sync-manager``/``--gossip``) every
 admission is noted for the fleet and a time-gated sync round runs
 after each dispatch, with one forced round at the end of the run.
 
-Not ported yet: the repair stage and the hybrid tier.
+With a hybrid bridge (hybrid/, CLI ``--hybrid``) each unique crash or
+hang is queued for validation on the real native binary, the verdicts
+fold back into sidecars, events, counters and scheduler credit after
+each dispatch, and the queue drains before the final sync round; the
+plateau auto-repair stage (``fuzzer/repairer.py``, CLI
+``--auto-repair``) rides the host-driven loop's plateau signal and
+runs once more after that drain.
 """
 
 from __future__ import annotations
@@ -212,7 +218,8 @@ class Fuzzer:
                  profile_device: int = 0,
                  generations: int = 0,
                  sync=None,
-                 learn=None):
+                 learn=None,
+                 hybrid=None):
         self.driver = driver
         self.output_dir = output_dir
         self.batch_size = int(batch_size)
@@ -270,6 +277,14 @@ class Fuzzer:
         #: inputs when coverage stalls, and feeds the focused-
         #: mutation masks; installed by the CLI's --crack wiring
         self.cracker = None
+        #: hybrid native⇄device bridge (hybrid/validate.py): unique
+        #: findings enqueue for native validation in _triage_lane,
+        #: verdicts fold back after every dispatch.  None = off
+        self.hybrid = hybrid
+        #: plateau auto-repair stage (fuzzer/repairer.py): consumes
+        #: accumulated proxy-gap counterexamples into a verified
+        #: patched proxy; installed by the CLI's --auto-repair wiring
+        self.repairer = None
         #: monotone dispatched-batch counter — the flight recorder
         #: maps it onto PIPELINE_DEPTH trace lanes (seq % depth)
         self._batch_seq = 0
@@ -660,6 +675,13 @@ class Fuzzer:
                     "crash", md5=digest,
                     crashes=int(s.crashes),
                     unique_crashes=int(s.unique_crashes))
+                if self.hybrid is not None:
+                    # cross-tier triage: one native validation per
+                    # UNIQUE finding — the dedup above is the rate limit
+                    self.hybrid.enqueue(
+                        "crash", buf, digest,
+                        parent=getattr(self._credit_arm, "md5", None),
+                        proxy_status=status)
                 if self.debug_triage:
                     self._debug_repro(buf)
         elif status == FUZZ_HANG:
@@ -671,6 +693,11 @@ class Fuzzer:
                 self.telemetry.event(
                     "hang", md5=digest, hangs=int(s.hangs),
                     unique_hangs=int(s.unique_hangs))
+                if self.hybrid is not None:
+                    self.hybrid.enqueue(
+                        "hang", buf, digest,
+                        parent=getattr(self._credit_arm, "md5", None),
+                        proxy_status=status)
         elif status == FUZZ_ERROR:
             s.errors += 1
             WARNING_MSG("target exec error on iteration %d", s.iterations)
@@ -791,6 +818,16 @@ class Fuzzer:
             # runs on clean exits AND interrupts, so --resume
             # continues exactly here
             self._persist_campaign(force=True)
+            # hybrid bridge drain BEFORE the forced sync: verdicts
+            # from in-flight native validations land in sidecars and
+            # the event stream before the final push
+            if self.hybrid is not None:
+                self.hybrid.finish(self)
+                # after the drain every verdict (and gap report) has
+                # folded, so the run-end repair sees the full
+                # counterexample set
+                if self.repairer is not None:
+                    self.repairer.finish(self)
             # one forced sync round last: entries triaged at the end
             # (a short campaign triages everything there) still reach
             # the fleet
@@ -1048,12 +1085,15 @@ class Fuzzer:
 
     def _between_dispatches(self) -> None:
         """The loops' common tail after each dispatch: train the learn
-        tier when due, flush the stats files, checkpoint, sync."""
+        tier when due, flush the stats files, checkpoint, sync, fold
+        the hybrid bridge's verdicts."""
         self._maybe_learn()
         self.telemetry.maybe_flush()
         self._persist_campaign()
         if self.sync is not None:
             self.sync.maybe_sync(self)
+        if self.hybrid is not None:
+            self.hybrid.fold(self)
 
     def _maybe_learn(self) -> None:
         """Between-dispatches learn-tier hook: train the saliency model
@@ -1164,6 +1204,11 @@ class Fuzzer:
                     with self.telemetry.timer("corpus_feedback"):
                         self._drain_ready(pending)
                         self.cracker.maybe_crack(self)
+                # conformance repair rides the same plateau signal:
+                # coverage stalls are when spending host time on the
+                # accumulated proxy-gap counterexamples is free
+                if self.repairer is not None:
+                    self.repairer.maybe_repair(self)
                 # a superbatch may not stride over a feedback rotation
                 # boundary (the check above only fires at loop top):
                 # engage only when the next boundary is at least K

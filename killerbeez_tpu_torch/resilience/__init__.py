@@ -21,9 +21,12 @@ brought to the CUDA tier.
                         backoff, re-probing the CUDA cards on device
                         loss and shrinking the mesh when cards stay
                         dead.
+  * ``fleetsim.py``   — the fleet-tier chaos rig: in-process gossiping
+                        workers (real stores, sidecars and exchange
+                        clients) driven round by round under manager
+                        kills, scoped partitions and poisoned peers.
 
-The fleet chaos rig is not ported yet; the exit codes and the
-checkpoint format are the same in both packages.
+The exit codes and the checkpoint format are the same in both packages.
 
 Exit-code contract between the loop and a supervisor (clear of the
 CLI's 0/1/2 usage codes and shells' 126+ conventions):

@@ -3,10 +3,10 @@ view.
 
 A copy of the JAX package's ``telemetry/aggregate.py``.  The (dp, mp)
 mesh campaign folds per-shard stat dicts each sync epoch with it
-(parallel/campaign.py); the JAX package's manager also folds worker
-heartbeats with it (not ported yet).  The merge is associative and
-commutative, so fold order — shard order, heartbeat arrival order,
-tree vs linear reduction — can never change the answer:
+(parallel/campaign.py), and the manager folds worker heartbeats into
+the ``/api/stats/<campaign>`` response with it.  The merge is
+associative and commutative, so fold order — shard order, heartbeat
+arrival order, tree vs linear reduction — can never change the answer:
 
   * counters    — summed (totals add across workers)
   * gauges      — max (a fleet's corpus size / pipeline depth is the

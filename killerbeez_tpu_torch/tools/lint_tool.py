@@ -7,8 +7,8 @@ coverage ids, empty modules, ``max_steps`` shortfalls, statically
 dead and must-crash blocks.  Exit code 1 when any error-severity
 finding exists (the CI lint lane gates on this), else 0.  Run as
 ``python -m killerbeez_tpu_torch.tools.lint_tool`` (``kb-lint`` below).
-The conformance checks (``--gaps-dir``) need the hybrid tier, which is
-not ported yet, so ``--gaps-dir`` exits 2.
+``--gaps-dir`` adds the conformance checks over a hybrid campaign's
+``proxy_gaps/`` directory (alone, it lints only those).
 
 Usage:
     kb-lint                       # all built-in targets
@@ -19,6 +19,9 @@ Usage:
     kb-lint --vsa                 # + value-set checks (infeasible-
                                   # edge, value-range-contradiction,
                                   # guaranteed-oob-store)
+    kb-lint --gaps-dir out/proxy_gaps --sarif
+                                  # conformance checks (proxy-gap-
+                                  # backlog, conformance-drift)
 """
 
 from __future__ import annotations
@@ -58,7 +61,8 @@ def _load_programs(args) -> List:
     import os
 
     names = list(args.targets)
-    if args.all_targets or (not names and not args.program_file):
+    if args.all_targets or (not names and not args.program_file
+                            and not args.gaps_dir):
         names = targets.target_names()
     progs = []
     for name in names:
@@ -106,6 +110,40 @@ def lint_report(program, want_dict: bool = False,
         rep["dictionary"] = [t.decode("latin-1")
                              for t in extract_dictionary(program, df)]
     return rep
+
+
+def conformance_reports(gaps_dir: str, threshold: int
+                        ) -> Dict[str, Dict]:
+    """Conformance findings as per-BINDING pseudo-reports, so each
+    SARIF result anchors a physicalLocation on that binding's proxy
+    program source line (the same gap the original checks closed) —
+    key ``conformance:<binding>`` -> {report, sarif location}."""
+    from ..analysis.conformance import conformance_lint
+    from ..hybrid.registry import get_binding
+
+    findings = conformance_lint(gaps_dir, threshold)
+    by_binding: Dict[str, List] = {}
+    for f in findings:
+        by_binding.setdefault(
+            f.data.get("binding") or "?", []).append(f)
+    out: Dict[str, Dict] = {}
+    for binding, fs in sorted(by_binding.items()):
+        loc = {"uri": f"kbvm/{binding}", "line": 1}
+        try:
+            loc = _target_location(
+                get_binding(binding).proxy_target)
+        except Exception:
+            pass                    # unknown binding: logical anchor
+        out[f"conformance:{binding}"] = {
+            "report": {
+                "findings": [f.as_dict() for f in fs],
+                "errors": sum(f.severity == SEV_ERROR for f in fs),
+                "warnings": sum(f.severity == SEV_WARNING
+                                for f in fs),
+            },
+            "location": loc,
+        }
+    return out
 
 
 _SARIF_LEVELS = {"error": "error", "warning": "warning", "info": "note"}
@@ -205,10 +243,6 @@ def main(argv: Optional[List[str]] = None) -> int:
                    help="unconsumed gap reports tolerated before "
                         "proxy-gap-backlog fires (default 8)")
     args = p.parse_args(argv)
-    if args.gaps_dir:
-        print("error: --gaps-dir is not ported yet (the conformance "
-              "checks need the hybrid tier)", file=sys.stderr)
-        return 2
     try:
         progs = _load_programs(args)
     except (ValueError, FileNotFoundError, KeyError) as e:
@@ -230,6 +264,14 @@ def main(argv: Optional[List[str]] = None) -> int:
         errors += rep["errors"]
         warnings += rep["warnings"]
 
+    if args.gaps_dir:
+        for key, ent in conformance_reports(
+                args.gaps_dir, args.gap_backlog).items():
+            reports[key] = ent["report"]
+            locs[key] = ent["location"]
+            errors += ent["report"]["errors"]
+            warnings += ent["report"]["warnings"]
+
     if args.json:
         print(json.dumps({"targets": reports, "errors": errors,
                           "warnings": warnings}, indent=2))
@@ -240,12 +282,15 @@ def main(argv: Optional[List[str]] = None) -> int:
         return 1 if errors else 0
 
     for name, rep in reports.items():
-        s = rep["stats"]
-        print(f"{name}: {s['n_blocks']} blocks, {s['n_edges']} "
-              f"edges ({s['n_slots']} slots, {s['n_modules']} "
-              f"module(s)), longest loop-free path "
-              f"{s['longest_acyclic_path']} of max_steps "
-              f"{s['max_steps']}")
+        s = rep.get("stats")
+        if s is None:               # conformance pseudo-reports
+            print(f"{name}:")
+        else:
+            print(f"{name}: {s['n_blocks']} blocks, {s['n_edges']} "
+                  f"edges ({s['n_slots']} slots, {s['n_modules']} "
+                  f"module(s)), longest loop-free path "
+                  f"{s['longest_acyclic_path']} of max_steps "
+                  f"{s['max_steps']}")
         for f in rep["findings"]:
             print(f"  {f['severity']}: [{f['code']}] {f['message']}")
         if args.want_dict:

@@ -90,13 +90,19 @@ def test_state_loads_across_packages(campaigns):
     (["--auto-repair"], "--auto-repair"),
     (["--sync-manager", "m"], "--sync-manager"),
     (["--learn-interval", "4"], "--learn-interval"),
-    (["--hybrid", "test"], "--hybrid"),
+    (["--hybrid", "no-such-binding"], "--hybrid"),
     (["--gossip"], "--gossip"), (["--learn"], "--learn"),
 ])
 def test_unported_flag_exits_2(extra, flag, tmp_path, capsys):
     """A flag still unported exits 2 naming it; a flag ported since
-    parses, and exits 2 with its own message when misused."""
+    parses, and exits 2 with its own message when misused (every flag
+    of the JAX CLI is ported now)."""
     misuse = {
+        "--auto-repair": (["--auto-repair"],
+                          "--auto-repair consumes the hybrid tier's "
+                          "proxy-gap reports — it needs --hybrid"),
+        "--hybrid": (["--hybrid", "no-such-binding"],
+                     "unknown proxy binding 'no-such-binding'"),
         "--sync-manager": (["--sync-manager", "m"],
                            "--sync-manager needs --sync-campaign"),
         "--learn-interval": (["--learn-interval", "4", "--learn",

@@ -7,8 +7,10 @@ package's ``__init__`` the names it imports from its own modules, that
 do not start with ``_``) must be defined in the port's module, or stand on one
 of the named lists below with the reason it is missing: the Queue A
 item of ``ROADMAP.md`` that ports it, or why it needs no port.  The
-modules are read as source (``ast``), so nothing here imports a
-module only to list its names."""
+public methods of each class that a module of both packages defines
+(its own and those it inherits, ``__dunder__`` methods included) are
+held to the JAX class's the same way.  The modules are read as source
+(``ast``), so nothing here imports a module only to list its names."""
 
 import ast
 import pathlib
@@ -19,27 +21,9 @@ ROOT = pathlib.Path(__file__).resolve().parent.parent
 JAX = ROOT / "killerbeez_tpu"
 PORT = ROOT / "killerbeez_tpu_torch"
 
-#: names still to be ported, by module, each with its Queue A item
-UNPORTED = {
-    "analysis/__init__.py": ("A5: the conformance and repair names", [
-        "BLAME_SCHEMA", "BlameRecord", "GAP_SCHEMA", "GapParseError",
-        "GapReport", "Patch", "REPAIR_SCHEMA", "apply_patch",
-        "conformance_lint", "enumerate_patches", "load_gap_reports",
-        "localize", "parse_gap_report", "replay_gaps", "run_repair",
-        "save_patched_program", "verdict_class", "write_repair_ledger"]),
-    "tools/lint_tool.py": ("A5: kb-lint's --gaps-dir", [
-        "conformance_reports"]),
-    "hybrid/__init__.py": (
-        "A5: the gaps, registry, translate and validate names", [
-            "CertificationError", "GAP_SCHEMA", "GapIndex",
-            "HybridBridge", "NativeDelivery", "NativeSpec",
-            "NativeValidator", "ProxyBinding", "VERDICT_CONFIRMED",
-            "VERDICT_FLAKY", "VERDICT_PROXY_ONLY", "ValidationQueue",
-            "append_ledger", "bind", "binding_names", "builtin_bindings",
-            "certify_binding", "from_delivery", "get_binding",
-            "install_repaired", "load_ledger", "make_bridge",
-            "make_gap_report", "register_binding", "to_delivery"]),
-}
+#: names still to be ported, by module, each with its Queue A item (none:
+#: every public name of the JAX modules is in the port)
+UNPORTED = {}
 
 #: names that need no port, by module, with the reason
 NO_PORT = {
@@ -156,3 +140,76 @@ def test_native_available_keeps_the_failure(monkeypatch):
     monkeypatch.setattr(nb, "build_native", lambda: None)
     assert nb.native_available() is True
     assert nb.build_error() is None
+
+
+#: public methods of JAX classes the port's class of the same module does
+#: not have, by (module, class), with the reason
+METHOD_DIFFERENCES = {
+    ("parallel/distributed.py", "_ShardKernels"): (
+        "device internals: the port derives the lane keys in base_key and "
+        "triages one (dp, mp) shard per call in triage_row and "
+        "state_triage_row, where the JAX package maps lane_keys, "
+        "triage_local and state_triage_local over the mesh",
+        ["lane_keys", "state_triage_local", "triage_local"]),
+    ("telemetry/__init__.py", "Telemetry"): (
+        "no caller in the JAX package", ["stage_summary"]),
+    ("corpus/store.py", "CorpusStore"): (
+        "no caller in the JAX package (the component states ride the "
+        "checkpoint)", ["save_component_state"]),
+}
+
+
+def _classes(pkg: pathlib.Path):
+    """{class name: [(module, own methods, base names)]} over a package:
+    the methods a class body defines or binds by assignment."""
+    out = {}
+    for path in pkg.rglob("*.py"):
+        rel = str(path.relative_to(pkg))
+        for node in ast.parse(path.read_text()).body:
+            if not isinstance(node, ast.ClassDef):
+                continue
+            own = {m.name for m in node.body if isinstance(
+                m, (ast.FunctionDef, ast.AsyncFunctionDef))}
+            own |= {t.id for m in node.body if isinstance(m, ast.Assign)
+                    for t in m.targets if isinstance(t, ast.Name)}
+            bases = [getattr(b, "id", getattr(b, "attr", None))
+                     for b in node.bases]
+            out.setdefault(node.name, []).append((rel, own, bases))
+    return out
+
+
+def _methods(index, name, rel, seen=()):
+    """A class's public methods with those it inherits from classes of
+    its package (a base of the same module first)."""
+    if name not in index or name in seen:
+        return set()
+    defs = index[name]
+    _, own, bases = next((d for d in defs if d[0] == rel), defs[0])
+    names = set(own)
+    for base in bases:
+        names |= _methods(index, base, rel, seen + (name,))
+    return {n for n in names if not n.startswith("_")
+            or (n.startswith("__") and n.endswith("__"))}
+
+
+JAX_CLASSES, PORT_CLASSES = _classes(JAX), _classes(PORT)
+CLASS_PAIRS = sorted(
+    (rel, name) for name, defs in JAX_CLASSES.items() for rel, _, _ in defs
+    if any(r == rel for r, _, _ in PORT_CLASSES.get(name, ())))
+
+
+def test_method_differences_name_shared_classes():
+    assert set(METHOD_DIFFERENCES) <= set(CLASS_PAIRS)
+
+
+@pytest.mark.parametrize("rel,name", CLASS_PAIRS,
+                         ids=[f"{r}:{n}" for r, n in CLASS_PAIRS])
+def test_class_methods_are_ported_or_listed(rel, name):
+    listed = set(METHOD_DIFFERENCES.get((rel, name), ("", []))[1])
+    jax_m = _methods(JAX_CLASSES, name, rel)
+    port_m = _methods(PORT_CLASSES, name, rel)
+    missing = sorted(jax_m - port_m - listed)
+    assert not missing, f"{rel}:{name}: not in the port: {missing}"
+    stale = sorted(listed & port_m)
+    assert not stale, f"{rel}:{name}: listed but ported: {stale}"
+    assert listed <= jax_m
