@@ -255,6 +255,21 @@ It builds the CUDA kernels from ``killerbeez_tpu_torch/csrc`` and:
      ABCC and 60 zero bytes, since from the padded ABCD a quarter of
      the lanes are distinct crashing inputs and writing their files
      takes the run;
+  16. (run before the record) the device spans (telemetry/device.py):
+     a ``-b 65536`` cuda_fused campaign of ``SPANS_SECONDS`` with
+     ``--trace`` and ``--profile-device 16``, built as the CLI builds
+     it: its ``trace.json`` holds a ``device`` lane with each batch's
+     ``kernels``, ``triage`` and ``report`` spans on the host's clock
+     and a ``clock_sync`` instant; printed as one ``{"device_spans":
+     ...}`` line: the counters of the spans and of the new stages, the
+     anchor's drift against the host's clock at the run's end (an
+     event the host brackets by two clock reads, placed by the
+     anchor), and, with the device trace placed on the host's
+     clock by the marker kernel of the ``clock_sync``, how far after
+     each captured batch's ``kernels`` span starts its
+     ``kbz_fuzz_kernel`` starts, and how far before the span ends its
+     phase-2 ``kbz_vm_kernel`` ends (both at least 0 when the two
+     traces align; their least values bound the alignment's error);
   9. prints one ``{"kernels": [...]}`` line (launches: the first
      host-driven, the first ``-G 16``, the first mesh, the first edges,
      the first rare-edge, the first crack flagship, the first
@@ -332,6 +347,9 @@ OPS_PER_BLOCK = 16
 OPS_PER_EDIT = 10
 OPS_PER_WRITTEN_BYTE = 2
 OPS_PER_HASH = 80
+#: phase 16's campaign length: a benchmark window's (BENCHMARK.json
+#: ``run_seconds``), over which the anchor's drift is read
+SPANS_SECONDS = 51.0
 SOURCE = "killerbeez_tpu_torch/csrc/vm_kernel.cu"
 REF = "killerbeez_tpu/ops/vm_kernel.py"
 
@@ -3411,6 +3429,119 @@ class Phases:
         self.name, self.t0 = name, time.perf_counter()
 
 
+def device_spans() -> dict:
+    """Phase 16: a ``-b 65536`` cuda_fused campaign of
+    ``SPANS_SECONDS`` with
+    the flight recorder on and the first 16 batches captured by
+    ``--profile-device``; checks the device lane and returns the
+    readings printed as the phase's line."""
+    from killerbeez_tpu_torch.drivers.factory import driver_factory
+    from killerbeez_tpu_torch.fuzzer.loop import Fuzzer
+    from killerbeez_tpu_torch.instrumentation.jit_harness import (
+        JitHarnessInstrumentation,
+    )
+    from killerbeez_tpu_torch.models import targets_cgc
+    from killerbeez_tpu_torch.mutators.randomized import HavocMutator
+
+    out = OUT / "spans"
+    shutil.rmtree(out, ignore_errors=True)
+    instr = JitHarnessInstrumentation(
+        '{"target": "tlvstack_vm", "engine": "cuda_fused", '
+        '"novelty": "throughput"}')
+    mut = HavocMutator(json.dumps({"seed": MUT_SEED}),
+                       targets_cgc.tlvstack_vm_seed())
+    fz = Fuzzer(driver_factory("file", None, instr, mut),
+                output_dir=str(out), batch_size=B, trace=1 << 20,
+                profile_device=16)
+    remaining, ends = fz._remaining, []
+
+    def until_deadline(n):
+        # the run's seconds count from its first dispatch, after the
+        # profiler's start and the anchor
+        t = time.perf_counter()
+        if not ends:
+            ends.append(t + SPANS_SECONDS)
+        return 0 if t > ends[0] else remaining(n)
+
+    fz._remaining = until_deadline
+    t_run = time.perf_counter()
+    fz.run()
+    t = time.perf_counter()
+    drift = _anchor_drift(fz.spans)
+
+    host = json.loads((out / "trace.json").read_text())["traceEvents"]
+    lane = next(e["tid"] for e in host if e["ph"] == "M"
+                and e["args"]["name"] == "device")
+    dev = [e for e in host if e["ph"] == "X" and e["tid"] == lane]
+    n = {k: sum(e["name"] == k for e in dev)
+         for k in ("kernels", "triage", "report", "dispatch")}
+    sync = [e["ts"] for e in host if e["name"] == "clock_sync"]
+    prof = json.loads((out / "device_trace" / "trace.json").read_text())
+    kern = sorted((e for e in prof["traceEvents"]
+                   if e.get("cat") == "kernel"), key=lambda e: e["ts"])
+    marks = [e["ts"] for e in kern if "spin_kernel" in e["name"]]
+    if not (n["kernels"] == n["triage"] == n["report"] > 0
+            and len(sync) == 1 and len(marks) == 1):
+        raise AssertionError(f"device spans: lane counts {n}, "
+                             f"{len(sync)} clock_sync, {len(marks)} "
+                             "marker kernels")
+    # the capture on the host's clock, by the marker; each captured
+    # batch's kernels span must hold its fused kernel (phase 1) and its
+    # kbz_vm_kernel (phase 2): how far inside it each lies bounds the
+    # alignment's error from both sides
+    offset = marks[0] - sync[0]
+    spans = sorted((e for e in dev if e["name"] == "kernels"),
+                   key=lambda e: e["ts"])
+    fuzz = [e for e in kern if "kbz_fuzz_kernel" in e["name"]]
+    vm = [e for e in kern if "kbz_vm_kernel" in e["name"]]
+    before = [f["ts"] - offset - s["ts"] for f, s in zip(fuzz, spans)]
+    after = [s["ts"] + s["dur"] - (v["ts"] + v["dur"] - offset)
+             for v, s in zip(vm, spans)]
+    reg = fz.telemetry.registry.counters
+    keys = ("dev_kernels_seconds", "dev_triage_seconds",
+            "dev_report_seconds", "dev_dispatch_seconds",
+            "dev_between_seconds", "dispatch_lead_seconds",
+            "telemetry_seconds", "checkpoint_seconds",
+            "execute_seconds", "triage_seconds")
+    return {"seconds": round(t - t_run, 3),
+            "execs": int(reg.get("execs", 0)), "lane": n,
+            "counters": {k: reg.get(k, 0.0) for k in keys},
+            "self_seconds": sum(v for k, v in reg.items()
+                                if k.endswith("_self_seconds")),
+            "drift_us": 1e6 * drift,
+            "captured_batches": len(before),
+            "fuzz_kernel_after_span_start_us": _spread(before),
+            "vm_kernel_before_span_end_us": _spread(after)}
+
+
+def _anchor_drift(spans) -> float:
+    """Seconds by which ``spans``' anchor places an event later than the
+    host's clock saw it: the event recorded on the idle card between
+    two clock reads, in the tightest of ``ANCHOR_ROUNDS`` rounds, less
+    the middle of its reads."""
+    from killerbeez_tpu_torch.telemetry.device import ANCHOR_ROUNDS
+
+    torch.cuda.synchronize()
+    best = None
+    for _ in range(ANCHOR_ROUNDS):
+        ev = torch.cuda.Event(enable_timing=True)
+        t0 = time.perf_counter()
+        ev.record()
+        ev.synchronize()
+        t1 = time.perf_counter()
+        if best is None or t1 - t0 < best[0]:
+            best = (t1 - t0, spans.host_time(ev) - (t0 + t1) / 2)
+    return best[1]
+
+
+def _spread(xs):
+    """min, median and max of ``xs`` (None where empty)."""
+    if not xs:
+        return None
+    return {"min": min(xs), "median": statistics.median(xs),
+            "max": max(xs)}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA card (torch.cuda.is_available() is "
@@ -3850,6 +3981,11 @@ def main() -> int:
     phases.start("15d (hybrid flagships)")
     hybrid_launches = hybrid_flagships(card, hybrid_seed(b"ABCC"))
     print(f"phase 15: {time.perf_counter() - t15:.1f} s wall", flush=True)
+
+    # -- phase 16: the device spans -------------------------------------
+    phases.start("16 (device spans)")
+    print(json.dumps({"device_spans": device_spans(), "card": card}),
+          flush=True)
 
     # -- phase 9: the record -------------------------------------------
     phases.start("9 (record)")

@@ -24,7 +24,10 @@ generations per dispatch (ops/generations.py) and the host only
 drains the findings ring and the admission ledger, replaying them
 through the same triage and admission stages.  ``profile_device``
 (``--profile-device``) records a ``torch.profiler`` trace of the first
-N batches or generations.
+N batches or generations.  On a single-card CUDA campaign the loop
+marks each dispatch for the device spans (telemetry/device.py), whose
+batch marks the instrumentation records, and folds the ones the card
+has passed after each dispatch, without waiting.
 
 With a mesh driver (``parallel/campaign.py``, CLI ``--mesh dp,mp``)
 the loop requests whole mesh batches, reads each dp shard's block of
@@ -91,7 +94,7 @@ from ..instrumentation.base import CompactReport, pack_verdicts, \
     unpack_verdicts
 from ..ops.host_copy import HostCopy
 from ..resilience.chaos import chaos_point
-from ..telemetry import MetricsRegistry, Telemetry
+from ..telemetry import DeviceSpans, MetricsRegistry, Telemetry
 from ..utils.fileio import ensure_dir, md5_hex, write_buffer_to_file
 from ..utils.logging import CRITICAL_MSG, DEBUG_MSG, INFO_MSG, WARNING_MSG
 
@@ -108,6 +111,12 @@ def _quantum_warning(room: int, quantum: int) -> None:
     WARNING_MSG("stopping %d iterations early: the mesh executes whole "
                 "%d-lane batches (-n should be a multiple of -b)", room,
                 quantum)
+
+
+def _marker() -> None:
+    """One short kernel (``spin_kernel``) on the current stream: the
+    device spans' anchor in a ``--profile-device`` capture."""
+    torch.cuda._sleep(1)
 
 
 class FuzzStats:
@@ -240,6 +249,17 @@ class Fuzzer:
         # drivers time their mutate/execute phases with the loop's
         # stage timer (base.Driver.test_batch)
         driver.stage_timer = telemetry.timer
+        #: device spans (telemetry/device.py): the card's time at the
+        #: layer boundaries, on single-card CUDA campaigns; the fused
+        #: steps and the generation loop mark them through the
+        #: instrumentation, the loop marks each dispatch
+        self.spans = None
+        dev = getattr(driver, "device", None)
+        if dev is not None and dev.type == "cuda" and \
+                getattr(driver, "mesh", None) is None:
+            self.spans = DeviceSpans(telemetry.registry, telemetry.trace)
+            if driver.instrumentation is not None:
+                driver.instrumentation.spans = self.spans
         if feedback < 0:
             mut = getattr(driver, "mutator", None)
             randomized = (mut is not None
@@ -795,6 +815,12 @@ class Fuzzer:
             # the sum of row deltas equals the cumulative counters
             self.telemetry.flush()
         self.telemetry.registry.run_started()
+        if self.spans is not None:
+            # --profile-device starts its capture before the anchor, so
+            # that the anchor's marker kernel lands in it
+            if self.profile_device and not self._prof_active:
+                self._profile_start()
+            self.spans.anchor(_marker if self._prof_active else None)
         try:
             if not self.driver.supports_batch:
                 self._run_single(n_iterations)
@@ -884,12 +910,12 @@ class Fuzzer:
             # that never completes
             chaos_point("device_wait")
             pk = np.asarray(packed)
-        statuses, new_paths, uc, uh = unpack_verdicts(pk)
-        statuses = statuses.astype(np.int32)
-        interesting = np.flatnonzero(
-            (statuses[:room] != FUZZ_NONE) | (new_paths[:room] > 0))
-        if len(interesting):
-            with timer("triage"):
+        with timer("triage"):
+            statuses, new_paths, uc, uh = unpack_verdicts(pk)
+            statuses = statuses.astype(np.int32)
+            interesting = np.flatnonzero(
+                (statuses[:room] != FUZZ_NONE) | (new_paths[:room] > 0))
+            if len(interesting):
                 self._triage_interesting(out, interesting, statuses,
                                          new_paths, uc, uh)
         DEBUG_MSG("batch done: %d iterations total", done_through)
@@ -1074,22 +1100,32 @@ class Fuzzer:
         return k
 
     def _after_dispatch(self, n: int, pending) -> None:
-        """Per-dispatch bookkeeping: rates, gauges, the learn tier's
-        training, the stats files, the campaign checkpoint and the
-        sync round (each time-gated)."""
-        reg = self.telemetry.registry
-        reg.rate("execs", n)
-        reg.gauge("pipeline_depth", len(pending))
-        self._update_state_gauges()
+        """Per-dispatch bookkeeping: rates, gauges, the device spans the
+        card has passed, the learn tier's training, the stats files, the
+        campaign checkpoint and the sync round (each time-gated)."""
+        with self.telemetry.timer("telemetry"):
+            reg = self.telemetry.registry
+            reg.rate("execs", n)
+            reg.gauge("pipeline_depth", len(pending))
+            self._update_state_gauges()
+            self._collect_spans()
         self._between_dispatches()
+
+    def _collect_spans(self) -> None:
+        """Fold the device spans of the dispatches the card has
+        finished (never waits)."""
+        if self.spans is not None:
+            self.spans.collect()
 
     def _between_dispatches(self) -> None:
         """The loops' common tail after each dispatch: train the learn
         tier when due, flush the stats files, checkpoint, sync, fold
         the hybrid bridge's verdicts."""
         self._maybe_learn()
-        self.telemetry.maybe_flush()
-        self._persist_campaign()
+        with self.telemetry.timer("telemetry"):
+            self.telemetry.maybe_flush()
+        with self.telemetry.timer("checkpoint"):
+            self._persist_campaign()
         if self.sync is not None:
             self.sync.maybe_sync(self)
         if self.hybrid is not None:
@@ -1115,10 +1151,15 @@ class Fuzzer:
             # the fused call covers k batches; its execute span lands
             # on the first slot
             self._trace_lane(tr)
+        sp = self.spans
         with self._wd_guard("dispatch"):
             chaos_point("device_dispatch")
+            if sp is not None:
+                sp.begin()
             packed, bufs, lens, compact = \
                 self.driver.test_batch_fused_multi(b, k)
+            if sp is not None:
+                sp.end()
         ph = HostCopy(packed)
         idxh, sbh, slh, cnth = (HostCopy(a) for a in compact)
         for j in range(k):
@@ -1248,8 +1289,11 @@ class Fuzzer:
                     # mutate/execute spans (driver stage timer) land
                     # on this batch's pipeline lane
                     lane = self._trace_lane(tr)
+                sp = self.spans
                 with self._wd_guard("dispatch"):
                     chaos_point("device_dispatch")
+                    if sp is not None:
+                        sp.begin()
                     # a short tail batch is padded to the batch size,
                     # as the JAX package pads it: a device backend's
                     # state counts the executed lanes, a host backend
@@ -1257,6 +1301,8 @@ class Fuzzer:
                     out = self.driver.test_batch(
                         room, pad_to=self.batch_size,
                         prefetch_next=max(nxt, 0))
+                    if sp is not None:
+                        sp.end()
                 out, packed = self._prefetch(out)
                 self.stats.iterations += room
                 if tr is not None:
@@ -1275,6 +1321,7 @@ class Fuzzer:
             # interrupt or a raise
             while pending:
                 self._triage_batch(*pending.popleft())
+            self._collect_spans()
 
     def _run_single(self, n_iterations: int) -> None:
         """The single-exec loop (backends that cannot batch: return_code,
@@ -1431,6 +1478,15 @@ class Fuzzer:
             # wedged card looks like from the host
             chaos_point("device_wait")
             h = out.materialize()
+        with timer("triage"):
+            self._replay_generations(h)
+        DEBUG_MSG("generations dispatch done: %d iterations total",
+                  done_through)
+
+    def _replay_generations(self, h) -> None:
+        """The triage of one drained ``-G`` dispatch ``h``: count ring
+        overflow, then replay its interesting lanes and its ledger's
+        admissions in (generation, lane) order."""
         reg = self.telemetry.registry
         # mesh outcomes carry a leading dp axis on every field EVEN at
         # dp = 1, so the discriminator is the shard() view, never the
@@ -1475,41 +1531,38 @@ class Fuzzer:
                               bool(ucs[ei]), bool(uhs[ei]),
                               admit=admit_ring)
 
-        with timer("triage"):
-            ei = [0] * len(views)
-            for j in range(int(h.g)):
-                gid = int(h.gen0) + j
-                for d, v in enumerate(views):
-                    # this generation's interesting lanes first (each
-                    # ring is (gen, lane)-ordered), then the shard's
-                    # admissions
-                    while ei[d] < stored[d] and int(v.fr_gen[ei[d]]) <= gid:
-                        replay_lane(d, ei[d])
-                        ei[d] += 1
-                    if not replay_adm or not int(v.adm_raw[j]):
-                        continue
-                    parent = self._ring_mirror.get((d, int(v.sel[j])),
-                                                   "base")
-                    for a in range(v.adm_valid.shape[1]):
-                        if not int(v.adm_valid[j, a]):
-                            continue
-                        buf = v.adm_bufs[j, a, :int(v.adm_len[j, a])
-                                         ].tobytes()
-                        digest = md5_hex(buf)
-                        self._admit_arm(buf, digest, parent=parent)
-                        slot = int(v.adm_slot[j, a])
-                        self._ring_mirror[(d, slot)] = digest
-                        self.telemetry.event("ring_admit", md5=digest,
-                                             slot=slot, gen=gid, shard=d,
-                                             parent=parent)
-            for d in range(len(views)):
-                while ei[d] < stored[d]:    # defensive: trailing rows
+        ei = [0] * len(views)
+        for j in range(int(h.g)):
+            gid = int(h.gen0) + j
+            for d, v in enumerate(views):
+                # this generation's interesting lanes first (each
+                # ring is (gen, lane)-ordered), then the shard's
+                # admissions
+                while ei[d] < stored[d] and int(v.fr_gen[ei[d]]) <= gid:
                     replay_lane(d, ei[d])
                     ei[d] += 1
+                if not replay_adm or not int(v.adm_raw[j]):
+                    continue
+                parent = self._ring_mirror.get((d, int(v.sel[j])),
+                                               "base")
+                for a in range(v.adm_valid.shape[1]):
+                    if not int(v.adm_valid[j, a]):
+                        continue
+                    buf = v.adm_bufs[j, a, :int(v.adm_len[j, a])
+                                     ].tobytes()
+                    digest = md5_hex(buf)
+                    self._admit_arm(buf, digest, parent=parent)
+                    slot = int(v.adm_slot[j, a])
+                    self._ring_mirror[(d, slot)] = digest
+                    self.telemetry.event("ring_admit", md5=digest,
+                                         slot=slot, gen=gid, shard=d,
+                                         parent=parent)
+        for d in range(len(views)):
+            while ei[d] < stored[d]:    # defensive: trailing rows
+                replay_lane(d, ei[d])
+                ei[d] += 1
         reg.gauge("gen_ring_filled",
                   sum(int(v.ring_filled.sum()) for v in views))
-        DEBUG_MSG("generations dispatch done: %d iterations total",
-                  done_through)
 
     def _run_generations(self, n_iterations: int) -> None:
         """The device-resident dispatch mode: each device call runs up
@@ -1571,11 +1624,16 @@ class Fuzzer:
                     tr = self.telemetry.trace
                     if tr is not None:
                         lane = self._trace_lane(tr)
+                    sp = self.spans
                     with self._wd_guard("dispatch"):
                         chaos_point("device_dispatch")
+                        if sp is not None:
+                            sp.begin()
                         out = drv.test_batch_generations(
                             n_real, g_eff, pad_to=self.batch_size,
                             reseed=reseed)
+                        if sp is not None:
+                            sp.end()
                     self.stats.iterations += g_eff * n_real
                     self._fb_batches += g_eff
                     out = out.prefetch()
@@ -1592,18 +1650,21 @@ class Fuzzer:
                                     lane))
                     if len(pending) >= 2:   # double buffer
                         self._drain_generations(*pending.popleft())
-                    reg.rate("execs", g_eff * n_real)
-                    reg.gauge("generations_per_dispatch", g_eff)
-                    reg.gauge("pipeline_depth", len(pending))
                     if self.learn is not None and self.learn.version > 0:
                         # one learned mask per generation once the model
                         # has trained (v0 masks are all-ones)
                         self.learn.masks_applied += g_eff
-                    self._update_state_gauges()
+                    with self.telemetry.timer("telemetry"):
+                        reg.rate("execs", g_eff * n_real)
+                        reg.gauge("generations_per_dispatch", g_eff)
+                        reg.gauge("pipeline_depth", len(pending))
+                        self._update_state_gauges()
+                        self._collect_spans()
                     self._between_dispatches()
             finally:
                 while pending:
                     self._drain_generations(*pending.popleft())
+                self._collect_spans()
                 if self.watchdog is not None:
                     self.watchdog.note_dispatch_scale(1)
         if stood_down:

@@ -102,6 +102,10 @@ class Instrumentation:
     #: inputs are tensors handed straight to the device (no target
     #: process, no cmd_line)
     device_backed = False
+    #: device-span recorder (telemetry/device.py) installed by the
+    #: Fuzzer on CUDA campaigns; the fused steps and the generation
+    #: loop mark their layer boundaries with it
+    spans = None
 
     def __init__(self, options: Optional[str] = None):
         self.options = parse_options(options, self.OPTION_SCHEMA,

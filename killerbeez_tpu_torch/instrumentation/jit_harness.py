@@ -192,18 +192,27 @@ def _compact(statuses, new_paths, bufs, lens):
 
 def _fuzz_one(instrs, edge_table, u_slots, seg_id, seed, base_key, its,
               vb, vc, vh, mem_size, max_steps, n_edges, exact, stack_pow2,
-              phase1_steps):
+              phase1_steps, spans=None):
     """One fused batch, judged: ``seed`` is the kernel's (ring, lengths,
-    slot) triple (ops/vm_kernel.seed_ring for a single seed)."""
+    slot) triple (ops/vm_kernel.seed_ring for a single seed).  With
+    ``spans`` (telemetry/device.py) the batch's marks open it and close
+    its ``kernels`` and ``triage`` layers."""
+    if spans is not None:
+        spans.batch()
     res, bufs, lens = fuzz_batch_2phase(
         instrs, edge_table, *seed, base_key, its, mem_size, max_steps,
         n_edges, stack_pow2=stack_pow2, phase1_steps=phase1_steps)
-    return _judge(res, u_slots, seg_id, vb, vc, vh, exact) + (bufs, lens)
+    if spans is not None:
+        spans.mark("kernels")
+    out = _judge(res, u_slots, seg_id, vb, vc, vh, exact)
+    if spans is not None:
+        spans.mark("triage")
+    return out + (bufs, lens)
 
 
 def _fused_fuzz_step(instrs, edge_table, u_slots, seg_id, seed, base_key,
                      its, vb, vc, vh, mem_size, max_steps, n_edges, exact,
-                     stack_pow2, phase1_steps=0):
+                     stack_pow2, phase1_steps=0, spans=None):
     """The flagship product path: per-lane keys fold_in(base_key,
     its), their havoc words, havoc mutation AND VM execution in one
     kernel (two-phase), static-edge triage, and the in-step compaction —
@@ -211,15 +220,18 @@ def _fused_fuzz_step(instrs, edge_table, u_slots, seg_id, seed, base_key,
     int64 tensor of uint32 iteration numbers on the device."""
     out = _fuzz_one(instrs, edge_table, u_slots, seg_id, seed, base_key,
                     its, vb, vc, vh, mem_size, max_steps, n_edges, exact,
-                    stack_pow2, phase1_steps)
+                    stack_pow2, phase1_steps, spans)
     statuses, new_paths = out[0], out[1]
     bufs, lens = out[9], out[10]
-    return out + (_compact(statuses, new_paths, bufs, lens),)
+    out += (_compact(statuses, new_paths, bufs, lens),)
+    if spans is not None:
+        spans.mark("report")
+    return out
 
 
 def _fused_fuzz_multi(instrs, edge_table, u_slots, seg_id, seed, base_key,
                       its0, vb, vc, vh, mem_size, max_steps, n_edges, exact,
-                      stack_pow2, k, phase1_steps=0):
+                      stack_pow2, k, phase1_steps=0, spans=None):
     """K fused fuzz steps in one call, virgin maps threaded through,
     verdicts bit-packed on the device.  Step j executes iterations
     ``its0 + j * len(its0)``: the candidate streams are bit-identical
@@ -233,10 +245,12 @@ def _fused_fuzz_multi(instrs, edge_table, u_slots, seg_id, seed, base_key,
         (statuses, new_paths, uc, uh, _exit, vb, vc, vh, _counts, bufs,
          lens) = _fuzz_one(instrs, edge_table, u_slots, seg_id, seed,
                            base_key, its, vb, vc, vh, mem_size, max_steps,
-                           n_edges, exact, stack_pow2, phase1_steps)
+                           n_edges, exact, stack_pow2, phase1_steps, spans)
         packed = pack_verdicts(statuses, new_paths, uc, uh)
         outs.append((packed, bufs, lens)
                     + _compact(statuses, new_paths, bufs, lens))
+        if spans is not None:
+            spans.mark("report")
     return (vb, vc, vh) + tuple(torch.stack(col) for col in zip(*outs))
 
 
@@ -634,7 +648,7 @@ class JitHarnessInstrumentation(Instrumentation):
             self._instrs, self._edge_table, self._u_slots, self._seg_id,
             seed, base_key, its, self.virgin_bits,
             self.virgin_crash, self.virgin_tmout, *self._args(), sp,
-            self.phase1_steps)
+            self.phase1_steps, self.spans)
         self.virgin_bits, self.virgin_crash, self.virgin_tmout = vb, vc, vh
         self.total_execs += n
         self._keep_counts(counts)
@@ -657,7 +671,7 @@ class JitHarnessInstrumentation(Instrumentation):
             self._instrs, self._edge_table, self._u_slots, self._seg_id,
             seed, base_key, its, self.virgin_bits,
             self.virgin_crash, self.virgin_tmout, *self._args(), sp,
-            int(k), self.phase1_steps)
+            int(k), self.phase1_steps, self.spans)
         self.virgin_bits, self.virgin_crash, self.virgin_tmout = vb, vc, vh
         self.total_execs += int(k) * n
         return packed, bufs, lens, (sel_idx, sel_bufs, sel_lens, counts)
@@ -733,7 +747,7 @@ class JitHarnessInstrumentation(Instrumentation):
                 spec.m_max, spec.n_states, spec.state_reg),
             vs=self.virgin_state, learn_params=self.learn_params,
             grammar=None if self.grammar_tables is None else (
-                self.grammar_tables, self._grammar_gt))
+                self.grammar_tables, self._grammar_gt), spans=self.spans)
         self.virgin_bits, self.virgin_crash, self.virgin_tmout = vb, vc, vh
         self.virgin_state = vs
         self._gen_ring = ring

@@ -371,7 +371,7 @@ def run_generations(instrs, edge_table, u_slots, seg_id, ring: RingState,
                     stack_pow2=4, g=1, phase1_steps=0, reseed=True,
                     adm_cap=DEFAULT_ADM_CAP,
                     findings_cap=DEFAULT_FINDINGS_CAP, stateful=None,
-                    vs=None, learn_params=None, grammar=None):
+                    vs=None, learn_params=None, grammar=None, spans=None):
     """G generations, enqueued on the current stream with no host read.
     Returns ((vb, vc, vh, vs), ring', report fields) — the report
     fields in ``GenerationOutcome``'s order.
@@ -408,7 +408,12 @@ def run_generations(instrs, edge_table, u_slots, seg_id, ring: RingState,
     its candidates with the masked havoc (``havoc_from_ring(...,
     mask=)``), then runs them through ``run_batch`` as the grammar tier
     does.  A version-0 model's all-ones mask gives exactly the havoc
-    lanes.  Grammar and learn are mutually exclusive."""
+    lanes.  Grammar and learn are mutually exclusive.
+
+    ``spans`` (telemetry/device.py) marks each generation's layers on
+    the stream: ``kernels`` (candidates and execution), ``triage``
+    (``_judge``), ``report`` (packing, the findings ring's append and
+    the ring's admission)."""
     from ..instrumentation.base import pack_verdicts
     from ..instrumentation.jit_harness import _judge
 
@@ -444,6 +449,8 @@ def run_generations(instrs, edge_table, u_slots, seg_id, ring: RingState,
     if learn_params is not None:
         mask_cache, mask_valid = new_mask_cache(ring.slots, L, dev)
     for j in range(int(g)):
+        if spans is not None:
+            spans.batch()
         gen_id = (int(gen0) + j) & M32
         sel = _select_slot(ring.filled[:ring.slots], gen_id, salt) \
             if reseed else slot0
@@ -475,12 +482,16 @@ def run_generations(instrs, edge_table, u_slots, seg_id, ring: RingState,
                 instrs, edge_table, ring.bufs, ring.lens, sel, base_key,
                 its, mem_size, max_steps, n_edges, stack_pow2=stack_pow2,
                 phase1_steps=phase1_steps)
+        if spans is not None:
+            spans.mark("kernels")
         statuses, new_paths, uc, uh, _exit, vb, vc, vh, _counts = _judge(
             res, u_slots, seg_id, vb, vc, vh, exact)
         if stateful is not None:
             s_rets, vs = (state_triage_exact if exact
                           else state_triage)(vs, res.se_counts)
             new_paths = torch.maximum(new_paths, s_rets)
+        if spans is not None:
+            spans.mark("triage")
         packed = pack_verdicts(statuses, new_paths, uc, uh)
         flags = ((statuses != FUZZ_NONE) | (new_paths > 0)) & lanes_real
         aflags = (new_paths == 2) & lanes_real
@@ -489,6 +500,8 @@ def run_generations(instrs, edge_table, u_slots, seg_id, ring: RingState,
             A, reseed)
         if learn_params is not None and reseed:
             _invalidate_admitted_masks(mask_valid, ledger, ring.slots)
+        if spans is not None:
+            spans.mark("report")
         sels.append(sel)
         araws.append(araw)
         ledgers.append(ledger)

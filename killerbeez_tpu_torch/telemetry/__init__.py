@@ -3,8 +3,9 @@
 The reference fuzzer's only runtime signal is log lines plus a final
 stats struct (fuzzer/main.c prints iteration counts at exit); this
 package gives the port the AFL ecosystem's signals instead: a
-process-local metrics registry with stage timers (metrics.py),
-periodic AFL-compatible ``fuzzer_stats`` / ``plot_data`` /
+process-local metrics registry with stage timers (metrics.py), the
+card's own time at the port's layer boundaries on CUDA campaigns
+(device.py), periodic AFL-compatible ``fuzzer_stats`` / ``plot_data`` /
 ``stats.jsonl`` writers (sink.py), an associative snapshot merge
 (aggregate.py) for the (dp, mp) mesh campaign's per-shard fold, the
 Prometheus / OpenMetrics text exposition of a snapshot
@@ -32,6 +33,7 @@ import time
 from typing import Dict, Optional
 
 from .aggregate import merge, merge_events, merge_health, merge_two
+from .device import DeviceSpans
 from .events import (
     EVENT_TYPES, EVENTS_FILE, EventLog, SCHEMA_VERSION,
     TERMINAL_EVENTS, last_event_seq, read_events,
@@ -45,8 +47,9 @@ from .sink import StatsSink, parse_fuzzer_stats, read_latest_snapshot
 from .trace import TraceRecorder, load_chrome_trace
 
 __all__ = [
-    "EVENT_TYPES", "EVENTS_FILE", "EmaRate", "EventLog", "Histogram",
-    "MetricsRegistry", "SCHEMA_VERSION", "STAGES", "StageTimer",
+    "DeviceSpans", "EVENT_TYPES", "EVENTS_FILE", "EmaRate", "EventLog",
+    "Histogram", "MetricsRegistry", "SCHEMA_VERSION", "STAGES",
+    "StageTimer",
     "StatsSink", "TERMINAL_EVENTS", "Telemetry", "TraceRecorder",
     "last_event_seq", "load_chrome_trace", "merge", "merge_events",
     "merge_health", "merge_two", "parse_fuzzer_stats",

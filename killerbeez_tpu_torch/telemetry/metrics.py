@@ -33,7 +33,11 @@ from typing import Dict, List, Optional
 HIST_BUCKETS: List[float] = [1e-6 * (2 ** i) for i in range(27)]
 
 #: canonical loop stage names, in pipeline order (glossary in
-#: docs/OBSERVABILITY.md)
+#: docs/OBSERVABILITY.md).  The port's loop also times ``telemetry``
+#: (rates, gauges, folding the device spans, the stats flush) and
+#: ``checkpoint`` (the campaign checkpoint between dispatches); they
+#: stay out of this tuple, so that the stage split and kb-stats read
+#: as the JAX package's, and show as their own counters
 STAGES = ("mutate", "execute", "host_transfer", "triage",
           "corpus_feedback", "fs_write", "learn")
 
@@ -251,30 +255,44 @@ class MetricsRegistry:
 
 
 class _Span:
-    __slots__ = ("reg", "stage", "tracer", "_t0", "_lane")
+    __slots__ = ("timer", "stage", "_t0", "_lane", "_child")
 
-    def __init__(self, reg: MetricsRegistry, stage: str, tracer=None):
-        self.reg = reg
+    def __init__(self, timer: "StageTimer", stage: str):
+        self.timer = timer
         self.stage = stage
-        self.tracer = tracer
         self._t0 = 0.0
         self._lane = 0
+        self._child = 0.0
 
     def __enter__(self) -> "_Span":
-        if self.tracer is not None:
+        tr = self.timer.tracer
+        if tr is not None:
             # pin the lane at entry: the loop may retarget the
             # recorder's current lane mid-span (triaging another
             # batch inside a corpus_feedback span), and a B/E pair
             # split across lanes would corrupt both lanes' stacks
-            self._lane = self.tracer.lane
-            self.tracer.begin(self.stage)
-        self._t0 = time.perf_counter()
+            self._lane = tr.lane
+            tr.begin(self.stage)
+        self.timer._stack.append(self)
+        self._t0 = self.timer.clock()
         return self
 
     def __exit__(self, *exc) -> None:
-        self.reg.observe(self.stage, time.perf_counter() - self._t0)
-        if self.tracer is not None:
-            self.tracer.end(self.stage, lane=self._lane)
+        timer = self.timer
+        d = timer.clock() - self._t0
+        timer.reg.observe(self.stage, d)
+        stack = timer._stack
+        if stack and stack[-1] is self:
+            stack.pop()
+        else:                           # left out of order
+            stack.remove(self)
+        if stack:
+            stack[-1]._child += d
+        # self time: the span less the spans nested in it, so that the
+        # self times of every stage partition the host's timed time
+        timer.reg.count(self.stage + "_self_seconds", d - self._child)
+        if timer.tracer is not None:
+            timer.tracer.end(self.stage, lane=self._lane)
 
 
 class StageTimer:
@@ -284,10 +302,12 @@ class StageTimer:
     plus the running ``<stage>_seconds`` counter.  Spans nest (an
     fs_write inside a triage span double-counts wall time by design:
     the split reports where the host spent attention, not a
-    partition).  perf_counter is ~40ns per call; at one timing per
-    batch (1k-64k execs) the overhead is unmeasurable.  No device
-    syncs: callers time around materialization points that already
-    exist.
+    partition); each span also adds its self time, its duration less
+    the spans nested in it, to ``<stage>_self_seconds``, and those do
+    partition: their sum is the time inside any stage.
+    perf_counter is ~40ns per call; at one timing per batch (1k-64k
+    execs) the overhead is unmeasurable.  No device syncs: callers
+    time around materialization points that already exist.
 
     When a ``TraceRecorder`` is attached (``--trace``), every timed
     stage also records a begin/end span on the recorder's CURRENT
@@ -296,11 +316,15 @@ class StageTimer:
     aggregate split and the flight-recorder timeline.
     """
 
-    __slots__ = ("reg", "tracer")
+    __slots__ = ("reg", "tracer", "clock", "_stack")
 
-    def __init__(self, registry: MetricsRegistry, tracer=None):
+    def __init__(self, registry: MetricsRegistry, tracer=None,
+                 clock=time.perf_counter):
         self.reg = registry
         self.tracer = tracer
+        self.clock = clock
+        #: the spans open now, outermost first
+        self._stack: List[_Span] = []
 
     def __call__(self, stage: str) -> _Span:
-        return _Span(self.reg, stage, self.tracer)
+        return _Span(self, stage)

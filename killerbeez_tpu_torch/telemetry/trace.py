@@ -10,6 +10,10 @@ directly.  PTrix (arxiv 1905.10499) is the model: throughput problems
 become debuggable when you can SEE per-batch pipeline occupancy, not
 just aggregate counters.
 
+Complete events (``complete``, Chrome ph X) carry both ends, so they
+can be recorded after the fact: the device spans (device.py) land on a
+``device`` lane once the card has passed them, on the same clock.
+
 Lane model: each event carries a ``lane`` (the Chrome ``tid``).  The
 fuzzing loop assigns every in-flight batch one of ``PIPELINE_DEPTH``
 pipeline lanes, so its mutate → dispatch → in-flight → transfer →
@@ -110,10 +114,21 @@ class TraceRecorder:
         self._n += 1
 
     def instant(self, name: str, lane: Optional[int] = None,
-                args: Optional[Dict[str, Any]] = None) -> None:
+                args: Optional[Dict[str, Any]] = None,
+                t: Optional[float] = None) -> None:
+        """A point event, at ``t`` (this recorder's clock) or now."""
         self._buf[self._n % self.max_events] = (
             "i", name, self.lane if lane is None else lane,
-            self._clock(), args, None)
+            self._clock() if t is None else t, args, None)
+        self._n += 1
+
+    def complete(self, name: str, t0: float, t1: float,
+                 lane: int) -> None:
+        """A span with explicit start and end times on this recorder's
+        clock (Chrome ph X), recorded after the fact: the device spans
+        (telemetry/device.py) fold in once the card has passed them."""
+        self._buf[self._n % self.max_events] = (
+            "X", name, lane, t0, None, t1)
         self._n += 1
 
     # async pairs (Chrome ph b/e): for operations that span OTHER
@@ -202,6 +217,10 @@ class TraceRecorder:
                 continue
             rec = {"ph": ph, "name": name, "pid": pid, "tid": tid,
                    "ts": round(ts, 3)}
+            if ph == "X":
+                rec["dur"] = round((aid - t) * 1e6, 3)
+                events.append(rec)
+                continue
             if args:
                 rec["args"] = args
             if ph == "B":

@@ -49,6 +49,11 @@ HOST_STAGES = ("mutate", "host_transfer", "triage", "learn",
                "corpus_feedback",
                "fs_write", "crack", "sync_round")
 
+#: the port's own host stages (telemetry/metrics.py STAGES); bubbles
+#: found on a CUDA campaign's ``device`` lane may fall in them, while a
+#: trace without that lane is read as the JAX package's tool reads it
+PORT_STAGES = ("telemetry", "checkpoint")
+
 #: lane-view glyph per span name (top-of-stack wins)
 GLYPHS = {"mutate": "m", "execute": "x", "host_transfer": "h",
           "triage": "t", "corpus_feedback": "c", "fs_write": "w",
@@ -91,6 +96,25 @@ def spans_from_chrome(doc: Dict[str, Any]) -> List[Dict[str, Any]]:
             if s is not None:
                 s["t1"] = float(ev.get("ts", 0.0))
                 spans.append(s)
+    spans.sort(key=lambda s: (s["t0"], s["t1"]))
+    return spans
+
+
+def device_spans_from_chrome(doc: Dict[str, Any]
+                             ) -> List[Dict[str, Any]]:
+    """The ``device`` lane's complete (ph X) events as ``{name, tid,
+    t0, t1}`` spans: each ``dispatch`` and each batch's ``kernels``,
+    ``triage`` and ``report``, timed on the card and placed on the
+    host's clock (telemetry/device.py).  Empty without that lane (a
+    CPU campaign)."""
+    lanes = {tid for tid, name in lane_names_from_chrome(doc).items()
+             if name == "device"}
+    spans = [{"name": ev.get("name", "?"), "tid": int(ev.get("tid", 0)),
+              "t0": float(ev.get("ts", 0.0)),
+              "t1": float(ev.get("ts", 0.0)) + float(ev.get("dur", 0.0)),
+              "args": None}
+             for ev in doc.get("traceEvents", [])
+             if ev.get("ph") == "X" and int(ev.get("tid", 0)) in lanes]
     spans.sort(key=lambda s: (s["t0"], s["t1"]))
     return spans
 
@@ -165,7 +189,8 @@ def stage_report(spans: List[Dict[str, Any]]
 
 
 def detect_bubbles(spans: List[Dict[str, Any]],
-                   threshold_us: Optional[float] = None
+                   threshold_us: Optional[float] = None,
+                   device: Optional[List[Dict[str, Any]]] = None
                    ) -> Tuple[List[Dict[str, Any]], float]:
     """Pipeline-bubble detection: a bubble is a gap between
     consecutive device dispatches (``execute`` spans, merged across
@@ -173,9 +198,21 @@ def detect_bubbles(spans: List[Dict[str, Any]],
     while the host mutated/triaged/synced.  Returns (bubbles,
     threshold_used).  The auto threshold is 4x the median
     dispatch-to-dispatch gap (floored at 200us): a steady pipeline's
-    natural cadence never alarms, a stall several times that does."""
-    ex = sorted([(s["t0"], s["t1"]) for s in spans
-                 if s["name"] == "execute"])
+    natural cadence never alarms, a stall several times that does.
+
+    With ``device`` (the ``device`` lane's spans) the dispatches are
+    its ``dispatch`` spans instead: the card's own time, where a host
+    ``execute`` span may hold a wait for the card.  A gap is then
+    stream time with no dispatch on it, the port's stages may take
+    it, and a gap no host stage overlaps is ``untimed``."""
+    if device:
+        ex = sorted([(s["t0"], s["t1"]) for s in device
+                     if s["name"] == "dispatch"])
+        stages = HOST_STAGES + PORT_STAGES
+    else:
+        ex = sorted([(s["t0"], s["t1"]) for s in spans
+                     if s["name"] == "execute"])
+        stages = HOST_STAGES
     if len(ex) < 3:
         return [], 0.0
     merged: List[Tuple[float, float]] = []
@@ -192,7 +229,7 @@ def detect_bubbles(spans: List[Dict[str, Any]],
         sizes = sorted(b - a for a, b in gaps)
         median = sizes[len(sizes) // 2]
         threshold_us = max(4.0 * median, 200.0)
-    host = [s for s in spans if s["name"] in HOST_STAGES]
+    host = [s for s in spans if s["name"] in stages]
     bubbles: List[Dict[str, Any]] = []
     for g0, g1 in gaps:
         dur = g1 - g0
@@ -204,9 +241,10 @@ def detect_bubbles(spans: List[Dict[str, Any]],
             o = min(s["t1"], g1) - max(s["t0"], g0)
             if o > 0:
                 overlap[s["name"]] = overlap.get(s["name"], 0.0) + o
-        if not overlap:
+        if not overlap and not device:
             continue                     # idle-idle: not a host bubble
-        dominant = max(overlap.items(), key=lambda kv: kv[1])
+        dominant = max(overlap.items(), key=lambda kv: kv[1]) \
+            if overlap else ("untimed", 0.0)
         bubbles.append({
             "t0_us": g0, "duration_us": dur,
             "dominant_stage": dominant[0],
@@ -214,6 +252,26 @@ def detect_bubbles(spans: List[Dict[str, Any]],
             "host_overlap_us": sum(overlap.values()),
         })
     return bubbles, threshold_us
+
+
+def device_report(device: List[Dict[str, Any]]
+                  ) -> Optional[Dict[str, Any]]:
+    """The ``device`` lane's summary: dispatches, the share of the
+    lane's window (first dispatch's start to last one's end) the card
+    spent inside dispatches, and each layer's device time."""
+    disp = [(s["t0"], s["t1"]) for s in device if s["name"] == "dispatch"]
+    if not disp:
+        return None
+    w0 = min(t0 for t0, _ in disp)
+    window = max(max(t1 for _, t1 in disp) - w0, 1e-9)
+    layers: Dict[str, float] = {}
+    for s in device:
+        if s["name"] != "dispatch":
+            layers[s["name"]] = layers.get(s["name"], 0.0) \
+                + s["t1"] - s["t0"]
+    return {"dispatches": len(disp), "window_us": window,
+            "busy_share": _union_len(disp) / window,
+            "layers_us": layers}
 
 
 def generations_report(spans: List[Dict[str, Any]],
@@ -582,6 +640,15 @@ def render(report: Dict[str, Any], lanes: List[str]) -> str:
         f"  bubbles       : {len(bubbles)} detected, "
         f"{_fmt_us(report.get('bubble_total_us', 0.0))} total "
         f"(threshold {_fmt_us(report.get('bubble_threshold_us', 0.0))})")
+    dv = report.get("device")
+    if dv:
+        layers = ", ".join(f"{k} {_fmt_us(v)}" for k, v in
+                           sorted(dv["layers_us"].items(),
+                                  key=lambda kv: -kv[1]))
+        lines.append(
+            f"  device lane   : {dv['dispatches']} dispatches, busy "
+            f"{dv['busy_share']:.2%} of {_fmt_us(dv['window_us'])} "
+            f"({layers}); bubbles are its gaps")
     for b in bubbles[:8]:
         lines.append(
             f"    @{_fmt_us(b['t0_us'])}: device idle "
@@ -640,7 +707,8 @@ def build_report(doc: Optional[Dict[str, Any]],
     if doc is not None:
         spans = spans_from_chrome(doc)
         stages, window = stage_report(spans)
-        bubbles, thresh = detect_bubbles(spans, bubble_us)
+        device = device_spans_from_chrome(doc)
+        bubbles, thresh = detect_bubbles(spans, bubble_us, device)
         host = {k: v for k, v in stages.items()
                 if k not in ("execute", "in_flight")}
         report.update({
@@ -659,6 +727,9 @@ def build_report(doc: Optional[Dict[str, Any]],
         gr = generations_report(spans, instants_from_chrome(doc))
         if gr:
             report["generations"] = gr
+        dv = device_report(device)
+        if dv:
+            report["device"] = dv
     if events:
         report["events"] = event_summary(events)
         sr = sessions_report(events)
@@ -767,7 +838,8 @@ def main(argv: Optional[List[str]] = None) -> int:
         return 0
     lanes: List[str] = []
     if doc is not None and not args.no_lanes:
-        spans = spans_from_chrome(doc)
+        # the device lane, where there is one, gets its own row
+        spans = spans_from_chrome(doc) + device_spans_from_chrome(doc)
         lanes = lane_view(spans, instants_from_chrome(doc),
                           lane_names_from_chrome(doc),
                           report.get("window_us", 0.0),
