@@ -270,6 +270,16 @@ It builds the CUDA kernels from ``killerbeez_tpu_torch/csrc`` and:
      ``kbz_fuzz_kernel`` starts, and how far before the span ends its
      phase-2 ``kbz_vm_kernel`` ends (both at least 0 when the two
      traces align; their least values bound the alignment's error);
+  17. (run before the record; alone: ``python -c 'import chip_smoke;
+     chip_smoke.triage_kernels(chip_smoke.card_line())'``) the
+     throughput-triage kernels (``csrc/triage.cu``) alone, on
+     tlvstack_vm's fused batches of 262144 and of 65536 lanes: card ==
+     CPU (the plain version on the batch's CPU copy) against fresh maps
+     and against maps four earlier batches have seen, their device ms
+     beside the bound (the operations of
+     ``benchmark/kbbench/arith.triage_ops``, the counts' bytes) and the
+     plain chain's device ms on the card, and the host ms to enqueue
+     them;
   9. prints one ``{"kernels": [...]}`` line (launches: the first
      host-driven, the first ``-G 16``, the first mesh, the first edges,
      the first rare-edge, the first crack flagship, the first
@@ -360,6 +370,12 @@ def card_line() -> str:
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True).stdout.strip()
     return out.splitlines()[0]
+
+
+def vm_launches(launches: dict) -> dict:
+    """The VM kernels' launch counts: all but the triage kernels', which
+    judge the session tier's classic map too."""
+    return {k: v for k, v in launches.items() if k != "kbz_triage"}
 
 
 def max_abs_err(a_fields, b_fields) -> int:
@@ -2158,7 +2174,7 @@ def session_parity(card):
 def stateful_cli_parity(seeds):
     """12b: --stateful campaigns card == CPU at -b 1024 with
     PIPELINE_DEPTH = 1 (host-driven at -fb 0 and the default -fb, -G 4,
-    --mesh 1,1 host-driven and at -G 4), none launching a kernel; then
+    --mesh 1,1 host-driven and at -G 4), none launching a VM kernel; then
     merger, minimize and picker card == CPU."""
     from killerbeez_tpu_torch.ops.vm_kernel import LAUNCHES
     # the default -fb rotates after 8 batches, so that case runs 12
@@ -2179,9 +2195,9 @@ def stateful_cli_parity(seeds):
                 json.dumps({"target": "tcp_like",
                             "novelty": "throughput"}), *extra,
                 mopts={"seed": 7}, seed=seeds["tcp_like"])
-            if LAUNCHES != before:
+            if vm_launches(LAUNCHES) != vm_launches(before):
                 raise AssertionError(f"--stateful ({label}) launched a "
-                                     "kernel")
+                                     "VM kernel")
             got[dev]["sigs"] = sorted(
                 (p.name, json.loads(p.read_text())["state_sig"])
                 for p in (out / "corpus").glob("*.json")
@@ -2304,8 +2320,9 @@ def stateful_flagships(card, seeds):
                                          f"{hit} deep-state edges — the "
                                          "unreachability proof is broken")
             else:
-                if any(launches.values()) or LAUNCHES != before:
-                    raise AssertionError(f"{run} launched a kernel: "
+                if (any(vm_launches(launches).values())
+                        or vm_launches(LAUNCHES) != vm_launches(before)):
+                    raise AssertionError(f"{run} launched a VM kernel: "
                                          f"{launches}")
                 if hit < 1:
                     raise AssertionError(f"{run} cracked no deep-state "
@@ -3429,6 +3446,92 @@ class Phases:
         self.name, self.t0 = name, time.perf_counter()
 
 
+def triage_kernels(card) -> dict:
+    """Phase 17: the three triage kernels alone (see the docstring's
+    item 17).  Returns the ``kernels`` row of the 262144-lane batch."""
+    from killerbeez_tpu_torch import FUZZ_CRASH, FUZZ_HANG, FUZZ_RUNNING
+    from killerbeez_tpu_torch.models import targets_cgc
+    from killerbeez_tpu_torch.models.targets import get_target
+    from killerbeez_tpu_torch.ops import _build, prng, vm_kernel as vk
+    from killerbeez_tpu_torch.ops import static_triage as st
+    from killerbeez_tpu_torch.tools.timing import host_ms, timed
+    sys.path.insert(0, str(ROOT / "benchmark"))
+    try:
+        from kbbench import arith
+    finally:
+        sys.path.pop(0)
+    dev = torch.device("cuda")
+    t0 = time.perf_counter()
+    _build.load("triage")
+    print(f"triage build+load: {time.perf_counter() - t0:.1f} s (nvcc "
+          f"{_build.build_seconds.get('triage', 0.0):.1f} s)", flush=True)
+    log = _build.library_path("triage").with_suffix(".log")
+    if log.exists():
+        for line in log.read_text().splitlines():
+            if "registers" in line or "spill" in line:
+                print(f"ptxas (triage): {line.strip()}", flush=True)
+    prog = get_target("tlvstack_vm")
+    seed_bytes = targets_cgc.tlvstack_vm_seed()
+    seed = torch.zeros(64, dtype=torch.uint8, device=dev)
+    seed[:len(seed_bytes)] = torch.tensor(list(seed_bytes),
+                                          dtype=torch.uint8)
+    ring = vk.seed_ring(seed, len(seed_bytes))
+    instrs = torch.as_tensor(prog.instrs, device=dev)
+    table = torch.as_tensor(prog.edge_table, device=dev)
+    key = prng.key(MUT_SEED, device=dev)
+    ms, steps, ne = prog.mem_size, prog.max_steps, prog.n_edges
+    u_slots, seg_id = (torch.as_tensor(a, device=dev)
+                       for a in st.make_static_maps(prog.edge_slot))
+    n_slots = u_slots.shape[0]
+    row = None
+    for lanes in (262144, 65536):
+        def batch(i):
+            its = torch.arange(i * lanes, (i + 1) * lanes,
+                               dtype=torch.int64, device=dev)
+            res, _, _ = vk.fuzz_batch_2phase(
+                instrs, table, *ring, key, its, ms, steps, ne, STACK_POW2,
+                phase1_steps=vk.auto_phase1_steps(steps))
+            return (res.counts, res.status == FUZZ_CRASH,
+                    (res.status == FUZZ_HANG) | (res.status == FUZZ_RUNNING))
+
+        fresh = tuple(torch.full((prog.map_size,), 0xFF, dtype=torch.uint8,
+                                 device=dev) for _ in range(3))
+        seen = fresh
+        for i in range(1, 5):
+            c, cr, hg = batch(i)
+            seen = st.static_triage(*seen, c, u_slots, seg_id, cr, hg)[3:]
+        counts, crash, hang = batch(0)
+        args = (counts, u_slots, seg_id, crash, hang)
+        for label, maps in (("fresh", fresh), ("seen", seen)):
+            got = st.static_triage(*maps, *args)
+            ref = st.static_triage_plain(*(t.cpu() for t in maps + args))
+            err = max_abs_err([t.cpu() for t in got], ref)
+            print(f"triage kernels, {lanes} lanes, {label} maps: card == "
+                  f"CPU max_abs_err {err}; new paths {int(ref[0].gt(0).sum())}"
+                  f", unique crashes {int(ref[1].sum())}, unique hangs "
+                  f"{int(ref[2].sum())}", flush=True)
+            if err:
+                raise AssertionError(f"triage kernels != CPU ({lanes} "
+                                     f"lanes, {label} maps)")
+        t_k = timed(lambda: st.static_triage(*seen, *args), 7)
+        t_plain = timed(lambda: st.static_triage_plain(*seen, *args), 5)
+        t_host = host_ms(lambda: st.static_triage(*seen, *args), 7)
+        ops = arith.triage_ops(lanes, ne, n_slots)
+        moved = lanes * (ne + 1 + 2 + 4 + 2) + 6 * prog.map_size
+        b_ms, by = bound(moved, ops)
+        print(f"triage kernels [{lanes} lanes, E {ne}, U {n_slots}, "
+              f"{card}]: card {t_k:.4f} ms, bound {b_ms:.4f} ms ({by}: "
+              f"{ops} operations, {moved} bytes), plain chain on the card "
+              f"{t_plain:.3f} ms, host enqueue {t_host:.3f} ms", flush=True)
+        if row is None:
+            row = {"name": "kbz_triage_lanes/_resolve/_maps", "route": "cuda",
+                   "source": "killerbeez_tpu_torch/csrc/triage.cu",
+                   "replaces": None, "launches": None,
+                   "max_abs_err": 0, "ms": t_k, "plain_ms": t_plain,
+                   "bound_ms": b_ms, "bound_by": by, "library_ms": None}
+    return row
+
+
 def device_spans() -> dict:
     """Phase 16: a ``-b 65536`` cuda_fused campaign of
     ``SPANS_SECONDS`` with
@@ -3982,6 +4085,10 @@ def main() -> int:
     hybrid_launches = hybrid_flagships(card, hybrid_seed(b"ABCC"))
     print(f"phase 15: {time.perf_counter() - t15:.1f} s wall", flush=True)
 
+    # -- phase 17: the triage kernels ----------------------------------
+    phases.start("17 (triage kernels)")
+    triage_row = triage_kernels(card)
+
     # -- phase 16: the device spans -------------------------------------
     phases.start("16 (device spans)")
     print(json.dumps({"device_spans": device_spans(), "card": card}),
@@ -4031,6 +4138,7 @@ def main() -> int:
          "max_abs_err": err_full, "ms": t_vm_all,
          "plain_ms": t_vm_all_plain, "bound_ms": b_all, "bound_by": by_all,
          "library_ms": None},
+        {**triage_row, "launches": launches["kbz_triage"]},
     ]
     print(json.dumps({"kernels": kernels}))
     print(f"device: {card}")

@@ -93,6 +93,7 @@ from ..drivers.base import BatchOutcome, Driver
 from ..instrumentation.base import CompactReport, pack_verdicts, \
     unpack_verdicts
 from ..ops.host_copy import HostCopy
+from ..ops.vm_kernel import LAUNCHES
 from ..resilience.chaos import chaos_point
 from ..telemetry import DeviceSpans, MetricsRegistry, Telemetry
 from ..utils.fileio import ensure_dir, md5_hex, write_buffer_to_file
@@ -361,6 +362,7 @@ class Fuzzer:
         self._active_entry: Optional[list] = None
         self._iter_base = 0             # execs restored by --resume
         self._fb_batches = 0
+        self._triage_seen = LAUNCHES["kbz_triage"]
         self._accum_warned = False
         self.stats = FuzzStats(telemetry.registry)
         self._seen = {k: set() for k in ("crashes", "hangs", "new_paths")}
@@ -1109,7 +1111,20 @@ class Fuzzer:
             reg.gauge("pipeline_depth", len(pending))
             self._update_state_gauges()
             self._collect_spans()
+            self._count_triage_kernels()
         self._between_dispatches()
+
+    def _count_triage_kernels(self) -> None:
+        """``triage_kernel_batches``: the batches the throughput-triage
+        kernels judged (the growth of ``LAUNCHES["kbz_triage"]``).  On
+        the card it equals the batches (generations) triaged in
+        throughput mode: a shortfall is a batch that took another
+        path."""
+        n = LAUNCHES["kbz_triage"]
+        if n != self._triage_seen:
+            self.telemetry.registry.count("triage_kernel_batches",
+                                          n - self._triage_seen)
+            self._triage_seen = n
 
     def _collect_spans(self) -> None:
         """Fold the device spans of the dispatches the card has
@@ -1660,6 +1675,7 @@ class Fuzzer:
                         reg.gauge("pipeline_depth", len(pending))
                         self._update_state_gauges()
                         self._collect_spans()
+                        self._count_triage_kernels()
                     self._between_dispatches()
             finally:
                 while pending:

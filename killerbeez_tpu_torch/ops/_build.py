@@ -28,6 +28,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3",
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_U = ctypes.c_uint
 _CFG = ctypes.POINTER(ctypes.c_int)
 # argument types of each source's extern "C" functions
 SIGNATURES = {
@@ -48,6 +49,14 @@ SIGNATURES = {
         "kbz_vm_launch": (_P, _I, _I, _P, _I, _I, _I, _P, _I, _P, _P, _P,
                           _I, _I, _I, _I, _P, _I, _P, _P, _P, _P, _P, _P,
                           _CFG),
+    },
+    "triage": {
+        # counts, row, B, slots, edges, U, E, u_slots, vb, vc, vh,
+        # map_bytes, crash, hang, keys, mins, cap, epoch, lane_slot,
+        # lane_nov, acc, any, rets, uc, uh, vb', vc', vh', stream
+        "kbz_triage_launch": (_P, _I, _I, _P, _P, _I, _I, _P, _P, _P, _P,
+                              _I, _P, _P, _P, _P, _U, _U, _P, _P, _P, _P,
+                              _P, _P, _P, _P, _P, _P, _P),
     },
 }
 

@@ -46,9 +46,10 @@ M32 = 0xFFFFFFFF
 #: kernel launches made by the wrappers (plain-version calls on CPU
 #: tensors do not count): "kbz_vm_kernel" over a lane list (two-phase
 #: scheduling), "kbz_vm_kernel_all" over every lane (the mesh's unfused
-#: cuda engine)
+#: cuda engine), "kbz_triage" one per batch triaged by the three
+#: throughput-triage kernels (ops/static_triage.py)
 LAUNCHES = {"kbz_fuzz_kernel": 0, "kbz_vm_kernel": 0,
-            "kbz_vm_kernel_all": 0}
+            "kbz_vm_kernel_all": 0, "kbz_triage": 0}
 #: each kernel's last launch: block size, grid, shared memory bytes
 #: per block, resident blocks per SM and whether the lanes' buffers
 #: and counts rows were in shared memory
